@@ -1,0 +1,77 @@
+"""Move flagship weights from the flax layout to the port's ``state_dict``.
+
+Layouts (flax is NWC, the port NCW):
+
+* conv kernels (k, in/groups, out) -> (out, in/groups, k);
+* dense kernels (in, out) -> (out, in);
+* BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and batch_stats
+  ``mean``/``var`` -> ``running_mean``/``running_var``, one to one.
+
+Module names: ``ConvBN_0`` -> ``stem``, ``DepthwiseConvBlock_i`` ->
+``blocks.i`` (its ``Conv_0``/``Conv_1`` -> ``depthwise``/``pointwise``),
+``Dense_0`` -> ``attention``, ``Dense_1`` -> ``head``, ``BatchNorm_0``
+-> ``bn``. The inputs are nested dicts of numpy arrays (e.g. from
+``jax.device_get``), so this module needs no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+         "mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _module_name(path: Tuple[str, ...]) -> str:
+    top, *inner = path
+    kind, _, idx = top.rpartition("_")
+    if kind == "ConvBN":
+        names = {"Conv_0": "stem.conv", "BatchNorm_0": "stem.bn"}
+    elif kind == "DepthwiseConvBlock":
+        names = {"Conv_0": f"blocks.{idx}.depthwise",
+                 "Conv_1": f"blocks.{idx}.pointwise",
+                 "BatchNorm_0": f"blocks.{idx}.bn"}
+    elif kind == "Dense":
+        return {"0": "attention", "1": "head"}[idx]
+    else:
+        raise KeyError(f"no port counterpart for flax module {top!r}")
+    if len(inner) != 1 or inner[0] not in names:
+        raise KeyError(f"no port counterpart for flax path {path!r}")
+    return names[inner[0]]
+
+
+def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and value.ndim == 3:
+        return value.transpose(2, 1, 0)
+    if leaf == "kernel" and value.ndim == 2:
+        return value.T
+    return value
+
+
+def from_flax(params: Mapping[str, Any],
+              batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` + ``batch_stats`` -> the flagship's ``state_dict``.
+
+    Also maps any params-shaped tree (gradients, for instance) when
+    ``batch_stats`` is empty. Tensors keep the arrays' dtype.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for path, value in _flatten(tree):
+            *mod, leaf = path
+            key = f"{_module_name(tuple(mod))}.{_LEAF[leaf]}"
+            out[key] = torch.from_numpy(np.array(
+                _to_torch_layout(leaf, value), order="C"))
+    return out

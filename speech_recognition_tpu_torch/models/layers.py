@@ -1,0 +1,198 @@
+"""Model blocks (port of speech_recognition_tpu/models/layers.py).
+
+Layout: activations are NCW ([batch, channels, time]) inside the port,
+torch's convolution layout; the JAX package is NWC. ``models/convert.py``
+moves weights between the two.
+
+Parameters are created empty and filled by ``init_parameters`` from an
+explicit ``torch.Generator`` (glorot-uniform kernels, zero biases, BN
+scale 1 / bias 0), so no layer draws from torch's global RNG.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+
+# Keras defaults, as in the JAX package. Flax's momentum 0.99 weighs the
+# old running value (torch's convention would call this momentum 0.01).
+BN_MOMENTUM = 0.99
+BN_EPS = 1e-3
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is if its dtype is wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """K.relu(x, max_value=6)."""
+    return F.relu6(x)
+
+
+class Conv(nn.Module):
+    """Bias-free 1-D convolution with TF padding semantics and a
+    glorot-uniform kernel (every conv of the flagship is bias-free).
+
+    ``weight`` is [out, in/groups, k]. ``padding='same'`` pads
+    asymmetrically (TF SAME, left = total // 2), which torch's own
+    ``padding='same'`` cannot do at stride > 1.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, padding: str = "valid", groups: int = 1):
+        super().__init__()
+        if padding.lower() not in ("valid", "same"):
+            raise ValueError(f"padding must be 'valid' or 'same', got "
+                             f"{padding!r}")
+        self.kernel = kernel
+        self.stride = stride
+        self.padding = padding.lower()
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, kernel))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.xavier_uniform_(self.weight, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.padding == "same":
+            x = F.pad(x, same_pad_amount(x.shape[-1], self.kernel,
+                                         self.stride))
+        return F.conv1d(x, self.weight, stride=self.stride,
+                        groups=self.groups)
+
+
+class Dense(nn.Module):
+    """Linear layer with a glorot-uniform kernel; ``weight`` is [out, in]."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = (nn.Parameter(torch.empty(out_features))
+                     if use_bias else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.xavier_uniform_(self.weight, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over NCW with flax/Keras semantics.
+
+    Train mode normalises with the batch mean and *biased* batch variance
+    and updates ``running_mean``/``running_var`` as
+    ``r <- 0.99 * r + 0.01 * batch_stat`` with the biased variance, as
+    flax does (torch's own BatchNorm folds in the unbiased variance).
+    Statistics are taken in at least float32 whatever the activation dtype.
+    """
+
+    def __init__(self, channels: int, momentum: float = BN_MOMENTUM,
+                 eps: float = BN_EPS):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self, generator: torch.Generator = None) -> None:
+        del generator  # deterministic init
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(at_least_float32(x), dim=(0, 2),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
+class Dropout(nn.Module):
+    """Dropout that draws its mask from an explicit ``torch.Generator``.
+
+    Inverted dropout as flax does it: kept values are scaled by 1/(1-p).
+    Identity in eval mode or at p = 0.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs an explicit "
+                             "torch.Generator")
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= self.p
+        return x * keep / (1.0 - self.p)
+
+
+class ConvBN(nn.Module):
+    """Conv -> BatchNorm -> relu6 (layers.py ConvBN)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int,
+                 stride: int = 1, padding: str = "same"):
+        super().__init__()
+        self.conv = Conv(in_channels, features, kernel, stride, padding)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(self.bn(self.conv(x)))
+
+
+class DepthwiseConvBlock(nn.Module):
+    """Depthwise conv -> 1x1 pointwise conv -> BatchNorm -> relu6.
+
+    The depthwise step carries the stride and padding (layers.py
+    DepthwiseConvBlock with its defaults: no bias, no intermediate BN).
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel: int,
+                 padding: str = "same", stride: int = 1):
+        super().__init__()
+        self.depthwise = Conv(in_channels, in_channels, kernel, stride,
+                              padding, groups=in_channels)
+        self.pointwise = Conv(in_channels, features, 1)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(self.bn(self.pointwise(self.depthwise(x))))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over every axis after the channel axis: [B, C, ...] -> [B, C]."""
+    return x.mean(dim=tuple(range(2, x.ndim)))
+
+
+def global_max_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.amax(dim=tuple(range(2, x.ndim)))
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every layer of ``module`` in registration order."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Dense, BatchNorm)):
+            m.reset_parameters(generator)
