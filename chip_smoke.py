@@ -2,20 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``speech_recognition_tpu_torch/csrc``,
-holds it against its plain PyTorch version at the train step's shapes,
-holds the flagship's logits on the card against the CPU, then drives the
-port's main path — 20 bf16 train steps of
-``conv_1d_time_sliced_with_attention`` at batch 384 on a synthetic bank
-the size of the full Speech Commands corpus, and one validation sweep —
-and checks that every train step launched the kernel. Any failure raises
-and exits non-zero; without a CUDA device it exits non-zero before
-printing any result. The last two lines of standard output are a JSON
-record of the kernels and ``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
+(one ``nvcc`` per source, all at once) and drives two paths:
+
+- decode+augment: holds the kernel against its plain PyTorch version at
+  the train step's shapes, holds the flagship's logits on the card
+  against the CPU, then runs the port's main path — 20 bf16 train steps
+  of ``conv_1d_time_sliced_with_attention`` at batch 384 on a synthetic
+  bank the size of the full Speech Commands corpus, and one validation
+  sweep — and checks that every train step launched the kernel;
+- separable block (``[separable]``): holds the fused forward kernel, in
+  its ``fuse`` and ``fold`` variants, against its plain version at the
+  flagship's 11 trunk shapes at batch 384 in bf16 and f32, then runs the
+  block benchmark (``benchmark_separable_blocks``) and checks that it
+  launched both variants.
+
+Any failure raises and exits non-zero; without a CUDA device it exits
+non-zero before printing any result. The last two lines of standard
+output are a JSON record of the kernels and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import subprocess
@@ -34,6 +44,16 @@ NUM_TRAIN, NUM_VAL, NUM_PSEUDO = 64_727, 6_798, 4_096
 NUM_BACKGROUND, BACKGROUND_LEN = 6, 16000 * 60
 KERNEL_ATOL = 1e-6
 LOGITS_ATOL = 1e-3
+KERNEL_SOURCES = ("decode_augment", "separable_block")
+# separable block, kernel against its plain version on the same inputs.
+# y: f32 (TF32 off) differs only in the order of the f32 sums of up to
+# 3 x 512 products, |y| < ~10; bf16 rounds at the same points as the plain
+# version, so a y differs by at most the one bf16 step that a different
+# f32 sum can round it to.
+SEP_Y_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# s1, s2: f32 sums over 384 x To rows taken with atomics in another
+# order, per channel relative to sum|y| (s1) and to s2.
+SEP_STATS_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -48,19 +68,147 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean ms per call of ``fn`` on the current stream (CUDA events)."""
-    for _ in range(warmup):
-        fn()
+def timed_build(name: str):
+    from speech_recognition_tpu_torch.ops.kernels import build
+    t0 = time.perf_counter()
+    lib = build.build(name)
+    return lib, time.perf_counter() - t0
+
+
+def compare_block(got, want, dtype):
+    """(max abs err of y, y elements out of tolerance, worst relative
+    error of s1, of s2) of the kernel's ``got`` against ``want``."""
+    y, s1, s2 = got
+    yw, s1w, s2w = want
+    if y.shape != yw.shape or y.dtype != dtype or not torch.isfinite(y).all():
+        raise RuntimeError(f"separable kernel output {y.dtype} "
+                           f"{tuple(y.shape)} (want {tuple(yw.shape)}), or "
+                           f"non-finite values")
+    rtol, atol = SEP_Y_TOL[dtype]
+    d = (y.float() - yw.float()).abs()
+    bad = int((d > atol + rtol * yw.float().abs()).sum())
+    scale1 = yw.float().abs().sum((0, 1)).clamp_min(1e-30)
+    e1 = float(((s1 - s1w).abs() / scale1).max())
+    e2 = float(((s2 - s2w).abs() / s2w.clamp_min(1e-30)).max())
+    return float(d.max()), bad, e1, e2
+
+
+def separable_phase(device, card: str, build_s: float):
+    """The separable block: kernel against plain at the 11 trunk shapes,
+    two extra cases, then the benchmark. Returns the ``kernels`` entries."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES,
+        benchmark_separable_blocks, separable_block_inputs,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+
+    phase_t0 = time.perf_counter()
+    log(f"[separable] library built in {build_s:.2f} s | tolerances: y "
+        f"bf16 rtol 2^-7 atol 1e-5, f32 atol 1e-4 (TF32 off); s1, s2 "
+        f"relative {SEP_STATS_RTOL}")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = dict(S.LAUNCHES)
+    calls = {"fuse": 0, "fold": 0}
+    worst = {"fuse": 0.0, "fold": 0.0}
+    failures = []
+
+    def check(label, variant, dtype, ins, **kw):
+        fold = variant == "fold"
+        got = S.fused_separable_block(*ins, fold_weights=fold, **kw)
+        want = S.separable_block_plain(*ins, fold_weights=fold, **kw)
+        calls[variant] += 1
+        if not kw.get("emit_stats", True):
+            if not isinstance(got, torch.Tensor):
+                raise RuntimeError("emit_stats=False returned more than y")
+            none = torch.zeros(1, device=device)
+            got, want = (got, none, none), (want, none, none)
+        err, bad, e1, e2 = compare_block(got, want, dtype)
+        worst[variant] = max(worst[variant], err)
+        if bad or e1 > SEP_STATS_RTOL or e2 > SEP_STATS_RTOL:
+            failures.append(f"{label} {variant} {dtype}: y max abs err "
+                            f"{err:.3g} ({bad} out of tolerance), s1 {e1:.3g},"
+                            f" s2 {e2:.3g}")
+        return err, e1, e2
+
+    for t, cin, cout, stride, padding in SEPARABLE_SHAPES:
+        x, w_dw, w_pw, a, b = separable_block_inputs(
+            t, cin, cout, batch=BATCH, dtype=torch.float32, device=device)
+        parts = []
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = [v.to(dtype) for v in (x, w_dw, w_pw)] + [a, b]
+            for variant in ("fuse", "fold"):
+                err, e1, e2 = check(f"T={t} {cin}->{cout} s{stride}", variant,
+                                    dtype, ins, stride=stride,
+                                    padding=padding)
+                parts.append(f"{variant} {str(dtype)[6:]} {err:.3g}"
+                             f"/{max(e1, e2):.2g}")
+        torch.cuda.synchronize()
+        log(f"[separable] T={t:3d} {cin}->{cout} s{stride} {padding:5s} "
+            f"B={BATCH}: y max abs err / stats rel err: " + ", ".join(parts))
+    # a stride-2 SAME shape without the prologue, and without the
+    # statistics
+    t, cin, cout, stride, padding = SEPARABLE_SHAPES[1]
+    x, w_dw, w_pw, _, _ = separable_block_inputs(
+        t, cin, cout, batch=BATCH, device=device)
+    for variant in ("fuse", "fold"):
+        check("no prologue", variant, torch.bfloat16, (x, w_dw, w_pw),
+              stride=stride, padding=padding)
+        check("emit_stats=False", variant, torch.bfloat16, (x, w_dw, w_pw),
+              stride=stride, padding=padding, emit_stats=False)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    log(f"[separable] T={t} {cin}->{cout} s{stride} {padding} bf16 without "
+        f"the prologue and with emit_stats=False: checked")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    rose = {v: S.LAUNCHES[v] - before[v] for v in calls}
+    if rose != calls:
+        raise RuntimeError(f"separable LAUNCHES rose by {rose} in {calls} "
+                           f"calls")
+    if failures:
+        raise RuntimeError("separable kernel against its plain version: "
+                           + "; ".join(failures))
+
+    # the path: the block benchmark, with the counts set to 0 just before
+    for variant in S.LAUNCHES:
+        S.LAUNCHES[variant] = 0
+    records = benchmark_separable_blocks(device)
+    launches = dict(S.LAUNCHES)
+    expected = len(SEPARABLE_SHAPES) * (1 + SEPARABLE_ITERS * SEPARABLE_RUNS)
+    if launches != {"fuse": expected, "fold": expected}:
+        raise RuntimeError(f"the block benchmark launched {launches}, "
+                           f"expected {expected} of each")
+    totals = {v: sum(r[f"{v}_ms"] for r in records)
+              for v in ("plain", "fuse", "fold")}
+    for r in records:
+        if not all(np.isfinite(r[f"{v}_ms"]) and r[f"{v}_ms"] > 0
+                   for v in totals):
+            raise RuntimeError(f"benchmark record {r}")
+        log(f"[separable] bench T={r['T']:3d} {r['Cin']}->{r['Cout']} "
+            f"s{r['stride']} {r['padding']:5s} B={r['batch']} bf16: plain "
+            f"{r['plain_ms']:.4f} ms, fuse {r['fuse_ms']:.4f} ms, fold "
+            f"{r['fold_ms']:.4f} ms | {card}")
+    log(f"[separable] total over {len(records)} shapes: plain "
+        f"{totals['plain']:.4f} ms, fuse {totals['fuse']:.4f} ms, fold "
+        f"{totals['fold']:.4f} ms (best of {SEPARABLE_RUNS} x "
+        f"{SEPARABLE_ITERS} calls); "
+        f"launches in the benchmark {launches}; phase "
+        f"{time.perf_counter() - phase_t0:.1f} s | {card}")
+    return [{
+        "name": f"separable_block/{variant}",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/separable_block.cu",
+        "replaces": "speech_recognition_tpu/ops/pallas/experiments/"
+                    "separable_kernel.py:167",
+        "launches": launches[variant],
+        "max_abs_err": worst[variant],
+        "ms": totals[variant],
+        "plain_ms": totals["plain"],
+    } for variant in ("fuse", "fold")]
 
 
 def edge_case_draws(trainer, ds):
@@ -90,11 +238,10 @@ def main() -> int:
     )
     from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.export.benchmark import (
-        benchmark_train,
+        benchmark_train, time_calls,
     )
     from speech_recognition_tpu_torch.models.layers import BatchNorm
     from speech_recognition_tpu_torch.models.zoo import build_model
-    from speech_recognition_tpu_torch.ops.kernels import build
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
     )
@@ -108,10 +255,12 @@ def main() -> int:
     log(f"[device] {kind} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = build.build("decode_augment")
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
+    # 2. build every kernel at once, one nvcc per source
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = dict(zip(KERNEL_SOURCES,
+                          pool.map(timed_build, KERNEL_SOURCES)))
+    for lib, secs in builds.values():
+        log(f"[build] {lib.name} in {secs:.2f} s")
 
     # the full-corpus bank the slice trains on (also the kernel's input)
     t0 = time.perf_counter()
@@ -155,10 +304,10 @@ def main() -> int:
                            f"{KERNEL_ATOL}")
     args = (ds.wav_bank, bg, d.file_ids, d.shifts, d.fg_vol, d.bg_pos,
             d.bg_vol)
-    plain_ms = time_cuda(lambda: K.decode_augment_reference(*args))
-    kernel_ms = time_cuda(lambda: K.decode_augment(*args))
-    plain_ms2 = time_cuda(lambda: K.decode_augment_reference(*args))
-    kernel_ms2 = time_cuda(lambda: K.decode_augment(*args))
+    plain_ms, kernel_ms, plain_ms2, kernel_ms2 = (
+        time_calls(fn, 50, runs=1) for fn in 2 * (
+            lambda: K.decode_augment_reference(*args),
+            lambda: K.decode_augment(*args)))
     kernel_ms, plain_ms = min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2)
     mbytes = BATCH * T * (2 + 4 + 4) / 1e6
     log(f"[kernel] decode_augment B={BATCH} T={T}: max abs err {max_err:.3g}"
@@ -166,7 +315,11 @@ def main() -> int:
         f"kernel {kernel_ms:.4f} ms ({mbytes / kernel_ms:.0f} GB/s of "
         f"{mbytes:.1f} MB), plain {plain_ms:.4f} ms | {card}")
 
-    # 4. the flagship on the card against the CPU, f32 with TF32 off
+    # 4. the separable block: kernel against plain, then its benchmark
+    separable_kernels = separable_phase(device, card,
+                                        builds["separable_block"][1])
+
+    # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -199,7 +352,7 @@ def main() -> int:
         = tf32
     del on_card
 
-    # 5. the slice: 20 bf16 train steps, then one validation sweep
+    # 6. the slice: 20 bf16 train steps, then one validation sweep
     state = trainer.init_state()
     torch.cuda.reset_peak_memory_stats()
     K.LAUNCHES = 0
@@ -237,7 +390,7 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }] + separable_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

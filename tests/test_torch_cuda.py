@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version
-and the train step on the card. Marked ``cuda``; without a CUDA device
+"""Card-only tests of the port: the CUDA kernels against their plain
+versions and the train step on the card. Marked ``cuda``; without a CUDA device
 they skip. This file imports no jax, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -9,7 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from speech_recognition_tpu_torch.export.benchmark import (
+    separable_block_inputs,
+)
 from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
+from speech_recognition_tpu_torch.ops.kernels import separable_block as S
 
 torch.set_num_threads(1)
 
@@ -103,3 +107,89 @@ def test_train_steps_launch_the_kernel(cuda):
     assert torch.isfinite(metrics["loss"]).all()
     conf, loss = trainer.evaluate(state)
     assert conf.sum() == 32 and np.isfinite(loss)
+
+
+# separable block: y within one bf16 step (bf16) or f32 summation order
+# (f32, TF32 off); statistics relative to sum|y| and to s2
+SEP_Y_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+SEP_STATS_RTOL = 1e-4
+SEP_SHAPES = [(399, 128, 128, 1, "VALID"), (397, 128, 192, 2, "SAME")]
+
+
+def _sep_inputs(cuda, batch, shape, dtype):
+    t, cin, cout, _, _ = shape
+    x, w_dw, w_pw, a, b = separable_block_inputs(
+        t, cin, cout, batch=batch, dtype=torch.float32, device=cuda)
+    return [v.to(dtype) for v in (x, w_dw, w_pw)] + [a, b]
+
+
+def _assert_block_close(got, want, dtype):
+    y, s1, s2 = got
+    yw, s1w, s2w = want
+    assert y.shape == yw.shape and y.dtype == dtype
+    rtol, atol = SEP_Y_TOL[dtype]
+    torch.testing.assert_close(y.float(), yw.float(), rtol=rtol, atol=atol)
+    scale1 = yw.float().abs().sum((0, 1))
+    assert ((s1 - s1w).abs() <= SEP_STATS_RTOL * scale1).all()
+    assert ((s2 - s2w).abs() <= SEP_STATS_RTOL * s2w).all()
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SEP_SHAPES)
+@pytest.mark.parametrize("batch", [3, 7, 384])
+def test_separable_kernel_matches_plain_version(cuda, batch, shape, dtype,
+                                                fold):
+    ins = _sep_inputs(cuda, batch, shape, dtype)
+    kw = dict(stride=shape[3], padding=shape[4], fold_weights=fold)
+    got = S.fused_separable_block(*ins, **kw)
+    torch.cuda.synchronize()
+    _assert_block_close(got, S.separable_block_plain(*ins, **kw), dtype)
+
+
+def test_separable_launches_are_counted_by_variant(cuda):
+    ins = _sep_inputs(cuda, 3, SEP_SHAPES[1], torch.bfloat16)
+    before = dict(S.LAUNCHES)
+    S.fused_separable_block(*ins, stride=2, padding="SAME")
+    S.fused_separable_block(*ins, stride=2, padding="SAME",
+                            fold_weights=False)
+    S.fused_separable_block(*ins, stride=2, padding="SAME",
+                            fold_weights=False, emit_stats=False)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == {"fold": before["fold"] + 1,
+                          "fuse": before["fuse"] + 2}
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_separable_kernel_without_prologue_or_stats(cuda, fold):
+    x, w_dw, w_pw, _, _ = _sep_inputs(cuda, 7, SEP_SHAPES[1], torch.bfloat16)
+    kw = dict(stride=2, padding="SAME", fold_weights=fold)
+    got = S.fused_separable_block(x, w_dw, w_pw, **kw)
+    want = S.separable_block_plain(x, w_dw, w_pw, **kw)
+    _assert_block_close(got, want, torch.bfloat16)
+    y = S.fused_separable_block(x, w_dw, w_pw, emit_stats=False, **kw)
+    torch.cuda.synchronize()
+    assert isinstance(y, torch.Tensor)
+    torch.testing.assert_close(y.float(), want[0].float(), rtol=2.0 ** -7,
+                               atol=1e-5)
+
+
+def test_separable_same_padding_comes_after_the_prologue(cuda):
+    x, w_dw, w_pw, a, b = _sep_inputs(cuda, 3, (22, 64, 96, 2, "SAME"),
+                                      torch.float32)
+    b = torch.full_like(b, 0.5)            # relu6(b) > 0 in a padded row
+    for fold in (False, True):
+        kw = dict(stride=2, padding="SAME", fold_weights=fold)
+        got = S.fused_separable_block(x, w_dw, w_pw, a, b, **kw)
+        torch.cuda.synchronize()
+        _assert_block_close(got, S.separable_block_plain(
+            x, w_dw, w_pw, a, b, **kw), torch.float32)
+
+
+def test_separable_wrapper_rejects_non_contiguous_x(cuda):
+    x, w_dw, w_pw, a, b = _sep_inputs(cuda, 3, SEP_SHAPES[0],
+                                      torch.bfloat16)
+    x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not x.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        S.fused_separable_block(x, w_dw, w_pw, a, b)

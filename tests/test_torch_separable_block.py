@@ -1,0 +1,334 @@
+"""Port's fused separable block (forward) vs the JAX Pallas kernel.
+
+The CUDA kernel runs only on a card; here the wrapper takes its plain
+PyTorch version (CPU tensors), which is what the kernel is held against
+on the card (tests/test_torch_cuda.py, chip_smoke.py). The JAX kernel
+runs in interpret mode, as tests/test_separable_kernel.py runs it.
+
+Tolerances:
+- float32, atol 2e-5 on y of magnitude ~1 (the JAX test's own bound):
+  both sides take the same products in f32; only the order of the
+  matrix product's sums differs.
+- bfloat16, one bf16 step: |d| <= 2^-7 |y| + 1e-5 (tighter than the
+  JAX test's atol 6e-2). Both sides round at the same points; where the
+  f32 sums of the matrix product differ in their last bits, y can round
+  to the neighbouring bf16 value (~1e-4 of the outputs do).
+- statistics: rtol 2e-5, atol 1e-4 against f32 sums of the rounded y.
+"""
+
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speech_recognition_tpu.ops.pallas.experiments import (
+    separable_kernel as J,
+)
+from speech_recognition_tpu_torch.export.benchmark import (
+    SEPARABLE_SHAPES, benchmark_separable_blocks, separable_block_inputs,
+)
+from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+from speech_recognition_tpu_torch.ops.kernels import separable_block as K
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+CASES = [
+    # (T, Cin, Cout, stride, padding) — flagship trunk shapes (reduced T),
+    # those of tests/test_separable_kernel.py
+    (47, 128, 128, 1, "VALID"),
+    (39, 128, 192, 2, "SAME"),
+    (21, 256, 320, 2, "SAME"),
+    (11, 384, 512, 2, "SAME"),
+    (9, 512, 512, 1, "VALID"),
+]
+F32_ATOL = 2e-5
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+STATS_RTOL, STATS_ATOL = 2e-5, 1e-4
+
+
+def _inputs(t, cin, cout, batch=4, seed=0):
+    """Numpy inputs at the JAX test's scales."""
+    rng = np.random.default_rng(seed + 7 * t + cin)
+    x = rng.standard_normal((batch, t, cin)).astype(np.float32)
+    w_dw = (rng.standard_normal((3, 1, cin)) * 0.2).astype(np.float32)
+    w_pw = (rng.standard_normal((1, cin, cout)) * 0.1).astype(np.float32)
+    a = rng.uniform(0.5, 1.5, cin).astype(np.float32)
+    b = (rng.standard_normal(cin) * 0.1).astype(np.float32)
+    return x, w_dw, w_pw, a, b
+
+
+def _port(x, w_dw, w_pw, a=None, b=None, dtype=torch.float32, **kw):
+    """The wrapper on CPU tensors; x in ``dtype``, the rest as given."""
+    args = [torch.from_numpy(x).to(dtype), torch.from_numpy(w_dw),
+            torch.from_numpy(w_pw)]
+    if a is not None:
+        args += [torch.from_numpy(a), torch.from_numpy(b)]
+    return K.fused_separable_block(*args, **kw)
+
+
+def _jax(x, w_dw, w_pw, a=None, b=None, dtype=jnp.float32, **kw):
+    args = [jnp.asarray(x).astype(dtype), jnp.asarray(w_dw),
+            jnp.asarray(w_pw)]
+    if a is not None:
+        args += [jnp.asarray(a), jnp.asarray(b)]
+    return J.fused_separable_block(*args, interpret=True, **kw)
+
+
+def _f32(v):
+    if isinstance(v, torch.Tensor):
+        return v.float().numpy()
+    return np.asarray(jnp.asarray(v).astype(jnp.float32))
+
+
+def _assert_stats(y, s1, s2):
+    """s1, s2 are the f32 sums of y and of y * y taken in y's dtype."""
+    yf = y.float()
+    np.testing.assert_allclose(s1.numpy(), yf.sum((0, 1)).numpy(),
+                               rtol=STATS_RTOL, atol=STATS_ATOL)
+    np.testing.assert_allclose(s2.numpy(), (y * y).float().sum((0, 1)),
+                               rtol=STATS_RTOL, atol=STATS_ATOL)
+
+
+@pytest.mark.parametrize("t,cin,cout,s,pad", CASES)
+@pytest.mark.parametrize("fold", [False, True])
+def test_plain_matches_pallas_kernel_f32(t, cin, cout, s, pad, fold):
+    ins = _inputs(t, cin, cout)
+    kw = dict(stride=s, padding=pad, fold_weights=fold)
+    y, s1, s2 = _port(*ins, **kw)
+    yj, s1j, s2j = _jax(*ins, **kw)
+    assert y.shape == yj.shape and y.dtype == torch.float32
+    np.testing.assert_allclose(_f32(y), _f32(yj), rtol=0, atol=F32_ATOL)
+    np.testing.assert_allclose(s1.numpy(), _f32(s1j), rtol=STATS_RTOL,
+                               atol=STATS_ATOL)
+    np.testing.assert_allclose(s2.numpy(), _f32(s2j), rtol=STATS_RTOL,
+                               atol=STATS_ATOL)
+
+
+@pytest.mark.parametrize("t,cin,cout,s,pad", [CASES[0], CASES[1], CASES[3]])
+@pytest.mark.parametrize("fold", [False, True])
+def test_plain_matches_pallas_kernel_bf16(t, cin, cout, s, pad, fold):
+    ins = _inputs(t, cin, cout)
+    kw = dict(stride=s, padding=pad, fold_weights=fold)
+    y, s1, s2 = _port(*ins, dtype=torch.bfloat16, **kw)
+    yj, _, _ = _jax(*ins, dtype=jnp.bfloat16, **kw)
+    assert y.dtype == torch.bfloat16 and y.shape == yj.shape
+    np.testing.assert_allclose(_f32(y), _f32(yj), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    _assert_stats(y, s1, s2)
+
+
+@pytest.mark.parametrize("t,cin,cout,s,pad", CASES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_reference_block_matches_jax_reference(t, cin, cout, s, pad,
+                                               prologue):
+    x, w_dw, w_pw, a, b = _inputs(t, cin, cout, seed=1)
+    ab = (a, b) if prologue else (None, None)
+    got = K.reference_block(
+        torch.from_numpy(x), torch.from_numpy(w_dw), torch.from_numpy(w_pw),
+        *[None if v is None else torch.from_numpy(v) for v in ab],
+        stride=s, padding=pad)
+    want = J.reference_block(
+        jnp.asarray(x), jnp.asarray(w_dw), jnp.asarray(w_pw),
+        *[None if v is None else jnp.asarray(v) for v in ab],
+        stride=s, padding=pad)
+    np.testing.assert_allclose(_f32(got[0]), _f32(want[0]), rtol=0,
+                               atol=F32_ATOL)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), _f32(w), rtol=STATS_RTOL,
+                                   atol=STATS_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fold", [False, True])
+def test_stats_are_sums_of_the_rounded_output(dtype, fold):
+    y, s1, s2 = _port(*_inputs(39, 128, 192, seed=2), dtype=dtype,
+                      stride=2, padding="SAME", fold_weights=fold)
+    assert s1.dtype == s2.dtype == torch.float32 and s1.shape == (192,)
+    _assert_stats(y, s1, s2)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_no_prologue_matches_pallas_kernel(fold):
+    x, w_dw, w_pw, _, _ = _inputs(23, 128, 128, seed=3)
+    kw = dict(stride=1, padding="VALID", fold_weights=fold)
+    y, s1, _ = _port(x, w_dw, w_pw, **kw)
+    yj, s1j, _ = _jax(x, w_dw, w_pw, **kw)
+    np.testing.assert_allclose(_f32(y), _f32(yj), rtol=0, atol=F32_ATOL)
+    np.testing.assert_allclose(s1.numpy(), _f32(s1j), rtol=STATS_RTOL,
+                               atol=STATS_ATOL)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_emit_stats_false_returns_y_alone(fold):
+    ins = _inputs(21, 256, 320, seed=4)
+    kw = dict(stride=2, padding="SAME", fold_weights=fold)
+    y = _port(*ins, emit_stats=False, **kw)
+    assert isinstance(y, torch.Tensor)
+    torch.testing.assert_close(y, _port(*ins, **kw)[0], rtol=0, atol=0)
+    yj = _jax(*ins, emit_stats=False, **kw)
+    np.testing.assert_allclose(_f32(y), _f32(yj), rtol=0, atol=F32_ATOL)
+
+
+def _numpy_block(x, w_dw, w_pw, a, b, stride, pad_lo, t_out):
+    """f64 numpy: prologue, THEN zero padding, depthwise, pointwise."""
+    xin = np.clip(x.astype(np.float64) * a + b, 0.0, 6.0)
+    k = w_dw.shape[0]
+    bsz, t, cin = x.shape
+    xp = np.zeros((bsz, (t_out - 1) * stride + k + t, cin))
+    xp[:, pad_lo:pad_lo + t] = xin
+    dw = sum(xp[:, i:i + (t_out - 1) * stride + 1:stride] * w_dw[i, 0]
+             for i in range(k))
+    return dw @ w_pw[0]
+
+
+@pytest.mark.parametrize("t,s", [(22, 2), (23, 2), (16, 1)])
+@pytest.mark.parametrize("fold", [False, True])
+def test_same_padding_comes_after_the_prologue(t, s, fold):
+    """With b > 0, relu6(b) > 0: a padded row must still be 0."""
+    x, w_dw, w_pw, a, _ = _inputs(t, 64, 96, seed=5)
+    b = np.full(64, 0.5, np.float32)
+    t_out, pad_lo = K.out_len(t, 3, s, "SAME")
+    kw = dict(stride=s, padding="SAME", fold_weights=fold)
+    y, _, _ = _port(x, w_dw, w_pw, a, b, **kw)
+    want = _numpy_block(x, w_dw, w_pw, a, b, s, pad_lo, t_out)
+    np.testing.assert_allclose(_f32(y), want, rtol=0, atol=F32_ATOL)
+    yj, _, _ = _jax(x, w_dw, w_pw, a, b, **kw)
+    np.testing.assert_allclose(_f32(y), _f32(yj), rtol=0, atol=F32_ATOL)
+    # the case tells the two orders apart: padding relu6(b) moves the ends
+    wrong = _numpy_block(np.pad(x, ((0, 0), (pad_lo, t_out * s + 3 - t),
+                                    (0, 0)), constant_values=0.0)
+                         [:, :(t_out - 1) * s + 3], w_dw, w_pw, a, b, s, 0,
+                         t_out)
+    assert np.abs(wrong - want).max() > 100 * F32_ATOL
+
+
+def test_out_len_agrees_with_same_pad_amount_and_jax():
+    for t in range(1, 64):
+        for k in (1, 3, 5):
+            for s in (1, 2, 3):
+                t_out, lo = K.out_len(t, k, s, "SAME")
+                assert lo == same_pad_amount(t, k, s)[0]
+                assert (t_out, lo) == J._out_len(t, k, s, "SAME")
+                if t >= k:
+                    assert K.out_len(t, k, s, "VALID") == J._out_len(
+                        t, k, s, "VALID")
+    # SAME at stride 2 is asymmetric: (out, lo), hi = total - lo
+    assert K.out_len(397, 3, 2, "SAME") == (199, 1)
+    assert same_pad_amount(397, 3, 2) == (1, 1)
+    assert K.out_len(22, 3, 2, "SAME") == (11, 0)
+    assert same_pad_amount(22, 3, 2) == (0, 1)
+    assert K.out_len(399, 3, 1, "VALID") == (397, 0)
+    with pytest.raises(ValueError):
+        K.out_len(10, 3, 1, "same")
+
+
+def test_cpu_path_does_not_count_launches():
+    before = dict(K.LAUNCHES)
+    _port(*_inputs(11, 32, 32), stride=2, padding="SAME")
+    _port(*_inputs(11, 32, 32), stride=2, padding="SAME",
+          fold_weights=False)
+    assert K.LAUNCHES == before
+
+
+def _torch_inputs(**over):
+    x, w_dw, w_pw, a, b = (torch.from_numpy(v) for v in _inputs(9, 16, 24))
+    ins = dict(x=x, w_dw=w_dw, w_pw=w_pw, a=a, b=b)
+    ins.update(over)
+    return ins
+
+
+@pytest.mark.parametrize("case", [
+    "x_float64", "x_int", "x_rank2", "w_dw_shape", "w_pw_cin",
+    "a_without_b", "a_shape", "w_int", "padding", "stride0", "too_short",
+    "meta_weights", "meta_x",
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    base = _torch_inputs()
+    bad = {
+        "x_float64": dict(x=base["x"].double()),
+        "x_int": dict(x=base["x"].int()),
+        "x_rank2": dict(x=base["x"][0]),
+        "w_dw_shape": dict(w_dw=base["w_dw"].reshape(3, 16, 1)),
+        "w_pw_cin": dict(w_pw=base["w_pw"][:, :8]),
+        "a_without_b": dict(b=None),
+        "a_shape": dict(a=base["a"][:8]),
+        "w_int": dict(w_pw=base["w_pw"].int()),
+        "padding": {},
+        "stride0": {},
+        "too_short": dict(x=base["x"][:, :2]),
+        "meta_weights": dict(w_pw=base["w_pw"].to("meta")),
+        "meta_x": {k: v.to("meta") for k, v in base.items()},
+    }[case]
+    ins = _torch_inputs(**bad)
+    kw = dict(stride=1, padding="VALID")
+    if case == "padding":
+        kw["padding"] = "FULL"
+    if case == "stride0":
+        kw["stride"] = 0
+    with pytest.raises(ValueError):
+        K.fused_separable_block(ins["x"], ins["w_dw"], ins["w_pw"],
+                                ins["a"], ins["b"], **kw)
+
+
+def test_wrapper_accepts_bf16_weights_and_non_contiguous_cpu_x():
+    ins = _torch_inputs()
+    x = torch.cat([ins["x"], ins["x"]], 2)[:, :, ::2]     # strided view
+    assert not x.is_contiguous()
+    got = K.fused_separable_block(x, ins["w_dw"].bfloat16(),
+                                  ins["w_pw"].bfloat16(), ins["a"],
+                                  ins["b"])
+    want = K.separable_block_plain(x.contiguous(), ins["w_dw"].bfloat16(),
+                                   ins["w_pw"].bfloat16(), ins["a"],
+                                   ins["b"])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_shapes_match_the_jax_block_benchmark():
+    tree = ast.parse((REPO / "scripts/bench_separable_kernel.py").read_text())
+    cfgs = next(node.value for node in ast.walk(tree)
+                if isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "CFGS")
+    assert [tuple(c) for c in ast.literal_eval(cfgs)] == SEPARABLE_SHAPES
+
+
+@pytest.mark.parametrize("shape", SEPARABLE_SHAPES)
+def test_slice_shapes_plain_fold_and_fuse_match_jax_reference(shape):
+    """Each benchmark shape at batch 2, f32: the port's two plain variants
+    and its ATen baseline against the JAX ``reference_block``."""
+    t, cin, cout, s, pad = shape
+    ins = separable_block_inputs(t, cin, cout, batch=2, dtype=torch.float32)
+    want = J.reference_block(*[jnp.asarray(v.numpy()) for v in ins],
+                             stride=s, padding=pad)
+    outs = [K.fused_separable_block(*ins, stride=s, padding=pad,
+                                    fold_weights=fold)
+            for fold in (False, True)]
+    outs.append(K.reference_block(*ins, stride=s, padding=pad))
+    for got in outs:
+        np.testing.assert_allclose(_f32(got[0]), _f32(want[0]), rtol=0,
+                                   atol=F32_ATOL)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g.numpy(), _f32(w), rtol=STATS_RTOL,
+                                       atol=STATS_ATOL * 10)
+
+
+def test_benchmark_refuses_the_cpu():
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark_separable_blocks("cpu")
+
+
+def test_benchmark_inputs_follow_the_seed_and_dtype():
+    x, w_dw, w_pw, a, b = separable_block_inputs(11, 16, 24, batch=3)
+    assert x.shape == (3, 11, 16) and x.dtype == torch.bfloat16
+    assert w_dw.shape == (3, 1, 16) and w_pw.shape == (1, 16, 24)
+    assert w_pw.dtype == torch.bfloat16 and a.dtype == b.dtype == \
+        torch.float32
+    assert float(a.min()) >= 0.5 and float(a.max()) <= 1.5
+    again = separable_block_inputs(11, 16, 24, batch=3)
+    for u, v in zip((x, w_dw, w_pw, a, b), again):
+        assert torch.equal(u, v)
