@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once) and drives two paths:
+(one ``nvcc`` per source, all at once) and drives three paths:
 
 - decode+augment: holds the kernel against its plain PyTorch version at
   the train step's shapes, holds the flagship's logits on the card
@@ -15,7 +15,14 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   its ``fuse`` and ``fold`` variants, against its plain version at the
   flagship's 11 trunk shapes at batch 384 in bf16 and f32, then runs the
   block benchmark (``benchmark_separable_blocks``) and checks that it
-  launched both variants.
+  launched both variants;
+- separable block backward (``[separable-bwd]``): holds the backward
+  kernel against its plain version at the same shapes and dtypes, and
+  without the prologue and at a VALID stride-2 shape with T - k odd;
+  holds the gradients of ``fused_separable_block_vjp`` against autograd
+  of the ATen block; then runs the forward+backward benchmark
+  (``benchmark_separable_block_grads``) and checks that it launched the
+  backward and ``fold`` kernels as often as it called them.
 
 Any failure raises and exits non-zero; without a CUDA device it exits
 non-zero before printing any result. The last two lines of standard
@@ -44,7 +51,7 @@ NUM_TRAIN, NUM_VAL, NUM_PSEUDO = 64_727, 6_798, 4_096
 NUM_BACKGROUND, BACKGROUND_LEN = 6, 16000 * 60
 KERNEL_ATOL = 1e-6
 LOGITS_ATOL = 1e-3
-KERNEL_SOURCES = ("decode_augment", "separable_block")
+KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd")
 # separable block, kernel against its plain version on the same inputs.
 # y: f32 (TF32 off) differs only in the order of the f32 sums of up to
 # 3 x 512 products, |y| < ~10; bf16 rounds at the same points as the plain
@@ -54,6 +61,22 @@ SEP_Y_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
 # s1, s2: f32 sums over 384 x To rows taken with atomics in another
 # order, per channel relative to sum|y| (s1) and to s2.
 SEP_STATS_RTOL = 1e-4
+# separable block backward, kernel against its plain version on the same
+# inputs, each output relative to its largest |value|. dx (rtol, atol): in
+# f32 it differs only by ddw's f32 sum order; in bf16 a different f32 sum
+# can flip ddw to the neighbouring bf16 value, which moves one tap piece
+# of dx by a bf16 step (measured up to 8.6e-4 of max|dx|, at T=11
+# 512->512). The f32 sums dw_dw, dw_pw, da, db are taken over up to 152k
+# rows with atomics in another order (f32: measured up to 2.1e-6); in bf16
+# a flipped ddw also moves one term of a sum by a bf16 step (measured up
+# to 1.5e-4).
+SEP_BWD_DX_TOL = {torch.float32: (0.0, 1e-5),
+                  torch.bfloat16: (2.0 ** -6, 2.0 ** -8)}
+SEP_BWD_SUM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# the VJP's gradients against autograd of the ATen block, f32 (the JAX
+# test's bound: the kernel recomputes the depthwise chain in another order)
+VJP_GRAD_RTOL = 5e-4
+BWD_NAMES = ("dx", "dw_dw", "dw_pw", "da", "db")
 
 
 def log(msg: str) -> None:
@@ -179,7 +202,7 @@ def separable_phase(device, card: str, build_s: float):
     records = benchmark_separable_blocks(device)
     launches = dict(S.LAUNCHES)
     expected = len(SEPARABLE_SHAPES) * (1 + SEPARABLE_ITERS * SEPARABLE_RUNS)
-    if launches != {"fuse": expected, "fold": expected}:
+    if launches != {"fuse": expected, "fold": expected, "bwd": 0}:
         raise RuntimeError(f"the block benchmark launched {launches}, "
                            f"expected {expected} of each")
     totals = {v: sum(r[f"{v}_ms"] for r in records)
@@ -209,6 +232,190 @@ def separable_phase(device, card: str, build_s: float):
         "ms": totals[variant],
         "plain_ms": totals["plain"],
     } for variant in ("fuse", "fold")]
+
+
+def compare_bwd(got, want, dtype):
+    """Per output of the backward (dx, dw_dw, dw_pw, da, db; da and db
+    only with the prologue): (max abs err, max abs err relative to the
+    output's largest |value|, elements out of tolerance) of the kernel's
+    ``got`` against ``want``."""
+    errs = {}
+    for name, g, w in zip(BWD_NAMES, got, want):
+        if (g is None) != (w is None):
+            raise RuntimeError(f"backward {name}: {g} against {w}")
+        if w is None:
+            continue
+        want_dtype = dtype if name == "dx" else torch.float32
+        if g.shape != w.shape or g.dtype != want_dtype \
+                or not torch.isfinite(g).all():
+            raise RuntimeError(f"backward {name} {g.dtype} {tuple(g.shape)}"
+                               f" (want {want_dtype} {tuple(w.shape)}), or "
+                               f"non-finite values")
+        d = (g.float() - w.float()).abs()
+        scale = float(w.float().abs().max())
+        rtol, atol = (SEP_BWD_DX_TOL[dtype] if name == "dx"
+                      else (0.0, SEP_BWD_SUM_RTOL[dtype]))
+        bad = int((d > rtol * w.float().abs() + atol * scale).sum())
+        errs[name] = (float(d.max()), float(d.max()) / max(scale, 1e-30), bad)
+    return errs
+
+
+def separable_bwd_phase(device, card: str, build_s: float):
+    """The separable block's backward: kernel against plain at the 11
+    trunk shapes and two extra cases, the VJP against autograd of the
+    ATen block, then the forward+backward benchmark. Returns the
+    ``kernels`` entry."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES,
+        benchmark_separable_block_grads, separable_block_cotangents,
+        separable_block_inputs,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+
+    phase_t0 = time.perf_counter()
+    log(f"[separable-bwd] library built in {build_s:.2f} s | tolerances, "
+        f"relative to each output's max |value|: dx f32 atol 1e-5 (TF32 "
+        f"off), bf16 rtol 2^-6 atol 2^-8; dw_dw, dw_pw, da, db f32 "
+        f"{SEP_BWD_SUM_RTOL[torch.float32]}, bf16 "
+        f"{SEP_BWD_SUM_RTOL[torch.bfloat16]}; VJP against autograd "
+        f"{VJP_GRAD_RTOL}")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = dict(S.LAUNCHES)
+    calls = 0
+    worst = 0.0
+    failures = []
+
+    def check(label, dtype, x, w_dw, w_pw, a, b, **kw):
+        nonlocal calls, worst
+        y = S.separable_block_plain(x, w_dw, w_pw, a, b, **kw)[0]
+        cts = separable_block_cotangents(y.shape[1], w_pw.shape[2],
+                                         batch=x.shape[0], dtype=dtype,
+                                         device=device)
+        args = (x, y, *cts, w_dw, w_pw, a, b)
+        got = S.separable_block_bwd(*args, **kw)
+        calls += 1
+        errs = compare_bwd(got, S.separable_block_bwd_plain(*args, **kw),
+                           dtype)
+        worst = max([worst] + [e[0] for e in errs.values()])
+        bad = {n: e[2] for n, e in errs.items() if e[2]}
+        if bad:
+            failures.append(f"{label} {dtype}: out of tolerance {bad}; "
+                            f"{errs}")
+        return got, errs
+
+    for t, cin, cout, stride, padding in SEPARABLE_SHAPES:
+        x, w_dw, w_pw, a, b = separable_block_inputs(
+            t, cin, cout, batch=BATCH, dtype=torch.float32, device=device)
+        parts = []
+        for dtype in (torch.bfloat16, torch.float32):
+            _, errs = check(f"T={t} {cin}->{cout} s{stride}", dtype,
+                            *(v.to(dtype) for v in (x, w_dw, w_pw)), a, b,
+                            stride=stride, padding=padding)
+            parts.append(f"{str(dtype)[6:]} " + " ".join(
+                f"{n} {e[1]:.2g}" for n, e in errs.items()))
+        torch.cuda.synchronize()
+        log(f"[separable-bwd] T={t:3d} {cin}->{cout} s{stride} "
+            f"{padding:5s} B={BATCH}: max abs err / max |value|: "
+            + "; ".join(parts))
+    # a stride-2 SAME shape without the prologue, and a VALID stride-2
+    # shape with T - k odd (its last input row feeds no output)
+    t, cin, cout, stride, padding = SEPARABLE_SHAPES[1]
+    x, w_dw, w_pw, _, _ = separable_block_inputs(t, cin, cout, batch=BATCH,
+                                                 device=device)
+    check("no prologue", torch.bfloat16, x, w_dw, w_pw, None, None,
+          stride=stride, padding=padding)
+    x, w_dw, w_pw, a, b = separable_block_inputs(t + 1, cin, cout,
+                                                 batch=BATCH, device=device)
+    got, _ = check("odd VALID", torch.bfloat16, x, w_dw, w_pw, a, b,
+                   stride=2, padding="VALID")
+    if not (got[0][:, -1] == 0).all():
+        failures.append(f"T={t + 1} s2 VALID: the last input row has a "
+                        f"gradient")
+    torch.cuda.synchronize()
+    log(f"[separable-bwd] T={t} {cin}->{cout} s{stride} {padding} bf16 "
+        f"without the prologue, and T={t + 1} s2 VALID (last row dx 0): "
+        f"checked")
+
+    # the VJP in f32 against autograd of the ATen block
+    vjp_before = dict(S.LAUNCHES)
+    leaves = [v.float().requires_grad_() for v in separable_block_inputs(
+        t, cin, cout, batch=BATCH, device=device)]
+    x, w_dw, w_pw, a, b = leaves
+    cts = separable_block_cotangents(S.out_len(t, 3, stride, padding)[0],
+                                     cout, batch=BATCH, dtype=torch.float32,
+                                     device=device)
+    got = torch.autograd.grad(S.fused_separable_block_vjp(
+        x, a, b, w_dw, w_pw, stride, padding), leaves, cts)
+    rose = {v: S.LAUNCHES[v] - vjp_before[v] for v in S.LAUNCHES}
+    if rose != {"fuse": 0, "fold": 1, "bwd": 1}:
+        raise RuntimeError(f"the VJP launched {rose}")
+    want = torch.autograd.grad(S.reference_block(
+        x, w_dw, w_pw, a, b, stride=stride, padding=padding), leaves, cts)
+    vjp_errs = {}
+    for name, g, w in zip(("dx", "dw_dw", "dw_pw", "da", "db"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"VJP {name} {g.dtype} {tuple(g.shape)}")
+        vjp_errs[name] = float((g - w).abs().max()) / float(w.abs().max())
+    if max(vjp_errs.values()) > VJP_GRAD_RTOL:
+        failures.append(f"VJP against autograd: {vjp_errs}")
+    log(f"[separable-bwd] VJP T={t} {cin}->{cout} s{stride} {padding} "
+        f"B={BATCH} f32, gradients against autograd of reference_block, "
+        f"max abs err / max |value|: " + ", ".join(
+            f"{n} {e:.2g}" for n, e in vjp_errs.items()))
+    del leaves, x, w_dw, w_pw, a, b, got, want
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    rose = {v: S.LAUNCHES[v] - before[v] for v in S.LAUNCHES}
+    if rose != {"fuse": 0, "fold": 1, "bwd": calls + 1}:
+        raise RuntimeError(f"separable LAUNCHES rose by {rose} in {calls} "
+                           f"backward calls and one VJP")
+    if failures:
+        raise RuntimeError("separable backward: " + "; ".join(failures))
+
+    # the path: the gradient benchmark, with the counts set to 0 just before
+    for variant in S.LAUNCHES:
+        S.LAUNCHES[variant] = 0
+    records = benchmark_separable_block_grads(device)
+    launches = dict(S.LAUNCHES)
+    per_variant = 1 + SEPARABLE_ITERS * SEPARABLE_RUNS
+    # per shape: one forward for y, then vjp_grad (fold + bwd) and bwd
+    expected = {"fuse": 0,
+                "fold": len(SEPARABLE_SHAPES) * (1 + per_variant),
+                "bwd": len(SEPARABLE_SHAPES) * 2 * per_variant}
+    if launches != expected:
+        raise RuntimeError(f"the gradient benchmark launched {launches}, "
+                           f"expected {expected}")
+    names = ("plain_grad", "vjp_grad", "bwd", "bwd_plain")
+    totals = {v: sum(r[f"{v}_ms"] for r in records) for v in names}
+    for r in records:
+        if not all(np.isfinite(r[f"{v}_ms"]) and r[f"{v}_ms"] > 0
+                   for v in names):
+            raise RuntimeError(f"benchmark record {r}")
+        log(f"[separable-bwd] bench T={r['T']:3d} {r['Cin']}->{r['Cout']} "
+            f"s{r['stride']} {r['padding']:5s} B={r['batch']} bf16: "
+            + ", ".join(f"{v} {r[f'{v}_ms']:.4f} ms" for v in names)
+            + f" | {card}")
+    log(f"[separable-bwd] total over {len(records)} shapes: " + ", ".join(
+        f"{v} {totals[v]:.4f} ms" for v in names)
+        + f" (best of {SEPARABLE_RUNS} x {SEPARABLE_ITERS} calls); launches "
+        f"in the benchmark {launches}; phase "
+        f"{time.perf_counter() - phase_t0:.1f} s | {card}")
+    return {
+        "name": "separable_block/bwd",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/separable_block_bwd.cu",
+        "replaces": "speech_recognition_tpu/ops/pallas/experiments/"
+                    "separable_kernel.py:391",
+        "launches": launches["bwd"],
+        "max_abs_err": worst,
+        "ms": totals["bwd"],
+        "plain_ms": totals["bwd_plain"],
+    }
 
 
 def edge_case_draws(trainer, ds):
@@ -318,6 +525,8 @@ def main() -> int:
     # 4. the separable block: kernel against plain, then its benchmark
     separable_kernels = separable_phase(device, card,
                                         builds["separable_block"][1])
+    separable_kernels.append(separable_bwd_phase(
+        device, card, builds["separable_block_bwd"][1]))
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,

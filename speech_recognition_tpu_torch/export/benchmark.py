@@ -1,7 +1,8 @@
 """Benchmarks on the card: the train step (port of
-speech_recognition_tpu/export/benchmark.py::benchmark_train) and the
-separable-block kernel at the flagship's trunk shapes (port of
-scripts/bench_separable_kernel.py).
+speech_recognition_tpu/export/benchmark.py::benchmark_train), and the
+separable-block kernels at the flagship's trunk shapes: the forward
+(port of scripts/bench_separable_kernel.py) and the forward with its
+gradients (the path of the JAX package's custom VJP).
 
 Each times a run of calls with a pair of ``torch.cuda.Event``s on the
 current stream and a final ``torch.cuda.synchronize()``: the elapsed
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from speech_recognition_tpu_torch.ops.kernels.separable_block import (
-    fused_separable_block, reference_block,
+    fused_separable_block, fused_separable_block_vjp, reference_block,
+    separable_block_bwd, separable_block_bwd_plain,
 )
 
 # (T, Cin, Cout, stride, padding) of the flagship's 11 trunk blocks
@@ -142,6 +144,73 @@ def benchmark_separable_blocks(device: torch.device | str = "cuda"
                 x, w_dw, w_pw, a, b, fold_weights=False, **kw),
             "fold": lambda: fused_separable_block(
                 x, w_dw, w_pw, a, b, fold_weights=True, **kw),
+        }
+        record = dict(T=t, Cin=cin, Cout=cout, stride=stride,
+                      padding=padding, batch=SEPARABLE_BATCH)
+        for name, fn in variants.items():
+            record[f"{name}_ms"] = time_calls(fn, SEPARABLE_ITERS,
+                                              SEPARABLE_RUNS)
+        record["device"] = torch.cuda.get_device_name(device)
+        records.append(record)
+    return records
+
+
+def separable_block_cotangents(t_out: int, cout: int, *,
+                               batch: int = SEPARABLE_BATCH,
+                               dtype: torch.dtype = torch.bfloat16,
+                               device: torch.device | str = "cpu"):
+    """``(dy, ds1, ds2)`` of one block from numpy seed 99, at the JAX VJP
+    test's scales: dy ~ N(0, 1) in ``dtype`` (y's), ds1 ~ 0.01 N(0, 1) and
+    ds2 ~ 0.001 N(0, 1) in float32 (s1's and s2's)."""
+    rng = np.random.default_rng(99)
+    dy = rng.standard_normal((batch, t_out, cout), dtype=np.float32)
+    ds1 = rng.standard_normal(cout, dtype=np.float32) * 0.01
+    ds2 = rng.standard_normal(cout, dtype=np.float32) * 0.001
+    return (torch.from_numpy(dy).to(device, dtype),
+            torch.from_numpy(ds1).to(device), torch.from_numpy(ds2).to(device))
+
+
+def benchmark_separable_block_grads(device: torch.device | str = "cuda"
+                                    ) -> List[Dict[str, Any]]:
+    """ms per call of the separable block's gradients at each trunk
+    shape, batch 384, in bf16, prologue and statistics on.
+
+    Four timings on the same inputs and cotangents: ``plain_grad``
+    (forward and ``torch.autograd.grad`` through ``reference_block``, the
+    ATen/cuDNN block, to all five inputs), ``vjp_grad`` (the same through
+    ``fused_separable_block_vjp``: the ``fold`` kernel, then the backward
+    kernel), ``bwd`` (the backward kernel alone) and ``bwd_plain``
+    (``separable_block_bwd_plain`` on the card). Each is the best of
+    ``SEPARABLE_RUNS`` runs of ``SEPARABLE_ITERS`` calls. One record per
+    shape.
+    """
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"benchmark_separable_block_grads measures a CUDA "
+                           f"device, not {device}")
+    records = []
+    for t, cin, cout, stride, padding in SEPARABLE_SHAPES:
+        x, w_dw, w_pw, a, b = separable_block_inputs(t, cin, cout,
+                                                     device=device)
+        kw = dict(stride=stride, padding=padding)
+        y = fused_separable_block(x, w_dw, w_pw, a, b, **kw)[0]
+        dy, ds1, ds2 = separable_block_cotangents(y.shape[1], cout,
+                                                  device=device)
+        leaves = [v.detach().requires_grad_() for v in (x, a, b, w_dw, w_pw)]
+
+        def grads(fn):
+            return torch.autograd.grad(fn(*leaves), leaves, (dy, ds1, ds2))
+
+        variants = {
+            "plain_grad": lambda: grads(lambda x, a, b, w_dw, w_pw:
+                                        reference_block(x, w_dw, w_pw, a, b,
+                                                        **kw)),
+            "vjp_grad": lambda: grads(lambda *v: fused_separable_block_vjp(
+                *v, stride, padding)),
+            "bwd": lambda: separable_block_bwd(x, y, dy, ds1, ds2, w_dw, w_pw,
+                                               a, b, **kw),
+            "bwd_plain": lambda: separable_block_bwd_plain(
+                x, y, dy, ds1, ds2, w_dw, w_pw, a, b, **kw),
         }
         record = dict(T=t, Cin=cin, Cout=cout, stride=stride,
                       padding=padding, batch=SEPARABLE_BATCH)

@@ -1,9 +1,12 @@
-"""Fused separable block forward: the CUDA kernel's wrapper, its plain
-version and the ATen baseline.
+"""Fused separable block, forward and backward: the CUDA kernels'
+wrappers, their plain versions, the autograd function and the ATen
+baseline.
 
-Replaces ``speech_recognition_tpu/ops/pallas/experiments/
-separable_kernel.py::fused_separable_block`` (kernel source:
-``csrc/separable_block.cu``). One DepthwiseConvBlock's convolutions in
+Replaces, in ``speech_recognition_tpu/ops/pallas/experiments/
+separable_kernel.py``, ``fused_separable_block`` (kernel source
+``csrc/separable_block.cu``), ``_fused_block_bwd_pallas`` (source
+``csrc/separable_block_bwd.cu``) and ``fused_separable_block_vjp``
+(``SeparableBlockFunction``). One DepthwiseConvBlock's convolutions in
 one pass::
 
     xin = relu6(x * a + b)            # optional prologue: the previous BN
@@ -11,11 +14,13 @@ one pass::
     s1, s2 = sum(y), sum(y * y)       # per channel: this block's BN stats
 
 The public functions keep the JAX layouts: x [B, T, Cin], w_dw [k, 1,
-Cin], w_pw [1, Cin, Cout]. ``fused_separable_block`` launches the kernel
-for CUDA tensors and uses ``separable_block_plain`` only for CPU tensors;
-on a card it never falls back. ``reference_block`` is what the port's
-``DepthwiseConvBlock`` runs today (ATen / cuDNN convolutions), the
-benchmark's baseline.
+Cin], w_pw [1, Cin, Cout]. ``fused_separable_block`` and
+``separable_block_bwd`` launch their kernels for CUDA tensors and use
+their plain versions only for CPU tensors; on a card they never fall
+back. ``reference_block`` is what the port's ``DepthwiseConvBlock`` runs
+today (ATen / cuDNN convolutions), the benchmark's baseline. The plain
+versions also take float64 on the CPU (for ``gradcheck``); the wrappers
+take bfloat16 and float32 only.
 """
 
 from __future__ import annotations
@@ -30,12 +35,25 @@ import torch.nn.functional as F
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
 from speech_recognition_tpu_torch.ops.kernels import build
 
-# Kernel launches made by ``fused_separable_block`` in this process, by
-# variant: "fold" (``fold_weights=True``) and "fuse".
-LAUNCHES = {"fuse": 0, "fold": 0}
+# Kernel launches in this process: ``fused_separable_block`` by variant,
+# "fold" (``fold_weights=True``) and "fuse"; ``separable_block_bwd`` as
+# "bwd".
+LAUNCHES = {"fuse": 0, "fold": 0, "bwd": 0}
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
-_MAX_NUMEL = 2 ** 31 - 1      # the kernel's offsets are 32-bit
+_MAX_NUMEL = 2 ** 31 - 1      # the kernels' offsets are 32-bit
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Type of the sums and products the kernels take in f32: float32,
+    or float64 for float64 inputs (plain versions only)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _in_compute(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` rounded to f32 (as the kernels take a and b), then to
+    ``dtype``."""
+    return v.to(_acc(dtype)).to(dtype)
 
 
 def out_len(t: int, k: int, stride: int, padding: str) -> Tuple[int, int]:
@@ -52,8 +70,9 @@ def fold_weights_of(w_dw: torch.Tensor, w_pw: torch.Tensor,
     """``W_i = diag(w_dw[i]) @ w_pw``: [k, Cin, Cout], products in f32,
     rounded once to ``dtype``."""
     k, _, cin = w_dw.shape
-    return (w_dw.reshape(k, cin, 1).float()
-            * w_pw.reshape(1, cin, -1).float()).to(dtype)
+    acc = _acc(dtype)
+    return (w_dw.reshape(k, cin, 1).to(acc)
+            * w_pw.reshape(1, cin, -1).to(acc)).to(dtype)
 
 
 def reference_block(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
@@ -88,35 +107,104 @@ def separable_block_plain(x: torch.Tensor, w_dw: torch.Tensor,
                           fold_weights: bool = True):
     """Plain PyTorch version of the kernel, in its order of operations and
     with its rounding points (see ``csrc/separable_block.cu``)."""
-    cdt = x.dtype
+    cdt, acc = x.dtype, _acc(x.dtype)
     _, t, cin = x.shape
     k = w_dw.shape[0]
     t_out, pad_lo = out_len(t, k, stride, padding)
     if a is not None:
-        x = torch.clamp(x * a.float().to(cdt) + b.float().to(cdt), 0, 6)
-    # padding after the prologue: a padded row is 0, not relu6(b)
-    hi = max((t_out - 1) * stride + k - t - pad_lo, 0)
-    xp = F.pad(x, (0, 0, pad_lo, hi))
-    span = (t_out - 1) * stride + 1
-    taps = [xp[:, i:i + span:stride] for i in range(k)]     # [B, To, Cin]
+        x = torch.clamp(x * _in_compute(a, cdt) + _in_compute(b, cdt), 0, 6)
     if fold_weights:
-        w = fold_weights_of(w_dw, w_pw, cdt).float()
-        y = taps[0].float() @ w[0]
+        taps = _taps(x, k, stride, pad_lo, t_out)            # [B, To, Cin]
+        w = fold_weights_of(w_dw, w_pw, cdt).to(acc)
+        y = taps[0].to(acc) @ w[0]
         for i in range(1, k):
-            y = y + taps[i].float() @ w[i]
+            y = y + taps[i].to(acc) @ w[i]
     else:
-        wdw = w_dw.reshape(k, cin).to(cdt)
-        dw = taps[0] * wdw[0]
-        for i in range(1, k):
-            dw = dw + taps[i] * wdw[i]
-        y = dw.float() @ w_pw.reshape(cin, -1).to(cdt).float()
+        dw = _depthwise_fuse(x, w_dw, stride, pad_lo, t_out)
+        y = dw.to(acc) @ w_pw.reshape(cin, -1).to(cdt).to(acc)
     y = y.to(cdt)
     if not emit_stats:
         return y
-    return y, y.float().sum((0, 1)), (y * y).float().sum((0, 1))
+    return y, y.to(acc).sum((0, 1)), (y * y).to(acc).sum((0, 1))
 
 
-def _check(x, w_dw, w_pw, a, b, stride, padding) -> None:
+def _taps(xin: torch.Tensor, k: int, stride: int, pad_lo: int,
+          t_out: int):
+    """The k tap views ``xp[:, t * stride + i]`` [B, To, Cin] of the
+    zero-padded ``xin``: padding after the prologue, so a padded row is
+    0, not relu6(b)."""
+    hi = max((t_out - 1) * stride + k - xin.shape[1] - pad_lo, 0)
+    xp = F.pad(xin, (0, 0, pad_lo, hi))
+    span = (t_out - 1) * stride + 1
+    return [xp[:, i:i + span:stride] for i in range(k)]
+
+
+def _depthwise_fuse(xin, w_dw, stride, pad_lo, t_out):
+    """The depthwise output in the compute type, each tap product and
+    each running sum rounded to it (the ``fuse`` chain)."""
+    k, _, cin = w_dw.shape
+    wdw = w_dw.reshape(k, cin).to(xin.dtype)
+    taps = _taps(xin, k, stride, pad_lo, t_out)
+    dw = taps[0] * wdw[0]
+    for i in range(1, k):
+        dw = dw + taps[i] * wdw[i]
+    return dw
+
+
+def separable_block_bwd_plain(x: torch.Tensor, y: torch.Tensor,
+                              dy: torch.Tensor, ds1: torch.Tensor,
+                              ds2: torch.Tensor, w_dw: torch.Tensor,
+                              w_pw: torch.Tensor,
+                              a: Optional[torch.Tensor] = None,
+                              b: Optional[torch.Tensor] = None, *,
+                              stride: int, padding: str):
+    """Plain PyTorch version of the backward kernel, in its order of
+    operations and with its rounding points (see
+    ``csrc/separable_block_bwd.cu``).
+
+    ``y`` is the block's rounded output (the forward's residual); ``dy``,
+    ``ds1``, ``ds2`` are the cotangents of y, s1 and s2. Returns ``(dx,
+    dw_dw [k, Cin], dw_pw [Cin, Cout], da, db)``: dx in x's dtype, the
+    rest float32 (float64 for float64 inputs); da and db are None
+    without the prologue. The depthwise output is recomputed with the
+    ``fuse`` chain whatever variant ran forward, as the TPU kernel does.
+    """
+    cdt, acc = x.dtype, _acc(x.dtype)
+    bsz, t, cin = x.shape
+    k, cout = w_dw.shape[0], w_pw.shape[2]
+    t_out, pad_lo = out_len(t, k, stride, padding)
+    wdw = w_dw.reshape(k, cin).to(cdt)
+    wpw = w_pw.reshape(cin, cout).to(cdt)
+    xin = x
+    if a is not None:
+        a_s = _in_compute(a, cdt)
+        pre = x * a_s + _in_compute(b, cdt)
+        xin = torch.clamp(pre, 0, 6)
+    taps = _taps(xin, k, stride, pad_lo, t_out)
+    dw = _depthwise_fuse(xin, w_dw, stride, pad_lo, t_out)
+    # the cotangent of y with the statistics' parts: s1 = sum(y) and
+    # s2 = sum(y^2) give dy + ds1 + 2 y ds2, in f32, rounded once
+    dyt = (dy.to(acc) + ds1.to(acc) + 2 * y.to(acc) * ds2.to(acc)).to(cdt)
+    dw_pw = dw.reshape(-1, cin).to(acc).T @ dyt.reshape(-1, cout).to(acc)
+    ddw = (dyt.to(acc) @ wpw.to(acc).T).to(cdt)               # [B, To, Cin]
+    dw_dw = torch.stack([(tap * ddw).to(acc).sum((0, 1)) for tap in taps])
+    # transposed depthwise conv: padded row t * stride + i takes
+    # ddw[t] * w_dw[i], taps added in ascending order, each rounded; the
+    # rows no tap reads (VALID with T - k odd at stride 2) stay 0
+    span = (t_out - 1) * stride + 1
+    dxp = x.new_zeros((bsz, max(span + k - 1, pad_lo + t), cin))
+    for i in range(k):
+        dxp[:, i:i + span:stride] += ddw * wdw[i]
+    dxin = dxp[:, pad_lo:pad_lo + t]
+    if a is None:
+        return dxin.contiguous(), dw_dw, dw_pw, None, None
+    # relu6's gradient with a strict mask: 0 where pre is exactly 0 or 6
+    dpre = torch.where((pre > 0) & (pre < 6), dxin, torch.zeros_like(dxin))
+    return (dpre * a_s, dw_dw, dw_pw, (dpre * x).to(acc).sum((0, 1)),
+            dpre.to(acc).sum((0, 1)))
+
+
+def _check(x, w_dw, w_pw, a, b, stride, padding, grads=None) -> None:
     if x.ndim != 3 or x.dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"x must be [B, T, Cin] bfloat16 or float32, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -151,6 +239,20 @@ def _check(x, w_dw, w_pw, a, b, stride, padding) -> None:
         raise ValueError(f"no output: T={t}, k={w_dw.shape[0]}, "
                          f"stride={stride}, {padding}")
     cout = w_pw.shape[2]
+    if grads is not None:
+        y, dy, ds1, ds2 = grads
+        out = (x.shape[0], t_out, cout)
+        if y.shape != out or y.dtype != x.dtype:
+            raise ValueError(f"y must be {x.dtype} {out}, got {y.dtype} "
+                             f"{tuple(y.shape)}")
+        for name, v, shape in (("dy", dy, out), ("ds1", ds1, (cout,)),
+                               ("ds2", ds2, (cout,))):
+            if v.shape != shape or not v.is_floating_point():
+                raise ValueError(f"{name} must be floating point {shape}, "
+                                 f"got {v.dtype} {tuple(v.shape)}")
+        for name, v in (("y", y), ("dy", dy), ("ds1", ds1), ("ds2", ds2)):
+            if v.device != x.device:
+                raise ValueError(f"{name} is on {v.device}, x on {x.device}")
     for size in (x.numel(), x.shape[0] * t_out * cout,
                  w_dw.shape[0] * cin * cout):
         if size > _MAX_NUMEL:
@@ -182,7 +284,6 @@ def fused_separable_block(x: torch.Tensor, w_dw: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_separable_block runs on cuda or cpu, not "
                          f"{x.device}")
-    lib = _library()
     cdt = x.dtype
     batch, t, cin = x.shape
     k, cout = w_dw.shape[0], w_pw.shape[2]
@@ -198,36 +299,146 @@ def fused_separable_block(x: torch.Tensor, w_dw: torch.Tensor,
     y = torch.empty((batch, t_out, cout), dtype=cdt, device=x.device)
     stats = (torch.zeros((2, cout), dtype=torch.float32, device=x.device)
              if emit_stats else None)
-    entry = (lib.separable_block_bf16 if cdt == torch.bfloat16
-             else lib.separable_block_f32)
-
-    def ptr(v):
-        return None if v is None else v.data_ptr()
-
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = entry(x.data_ptr(), ptr(a), ptr(b), wdw.data_ptr(),
-                    w.data_ptr(), y.data_ptr(), ptr(stats), batch, t, cin,
-                    cout, k, stride, pad_lo, t_out, int(fold_weights),
-                    stream)
-    if err != 0:
-        msg = lib.separable_block_error_string(err).decode()
-        raise RuntimeError(f"separable_block launch failed: {msg} ({err})")
+    _launch("separable_block", x, x.data_ptr(), _ptr(a), _ptr(b),
+            wdw.data_ptr(), w.data_ptr(), y.data_ptr(), _ptr(stats), batch,
+            t, cin, cout, k, stride, pad_lo, t_out, int(fold_weights))
     LAUNCHES["fold" if fold_weights else "fuse"] += 1
     if not emit_stats:
         return y
     return y, stats[0], stats[1]
 
 
+def separable_block_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                        ds1: torch.Tensor, ds2: torch.Tensor,
+                        w_dw: torch.Tensor, w_pw: torch.Tensor,
+                        a: Optional[torch.Tensor] = None,
+                        b: Optional[torch.Tensor] = None, *,
+                        stride: int, padding: str):
+    """Backward of ``fused_separable_block``: ``(dx, dw_dw [k, Cin],
+    dw_pw [Cin, Cout], da, db)`` from the inputs, the rounded output y
+    and the cotangents dy, ds1, ds2 of (y, s1, s2).
+
+    dx is in x's dtype (bfloat16 or float32), the rest float32; da and db
+    are None without the prologue. See ``separable_block_bwd_plain`` for
+    the arithmetic, which the kernel follows rounding for rounding.
+    """
+    _check(x, w_dw, w_pw, a, b, stride, padding, grads=(y, dy, ds1, ds2))
+    dy = dy.contiguous()       # autograd may pass strided or expanded ones
+    kw = dict(stride=stride, padding=padding)
+    if x.device.type == "cpu":
+        return separable_block_bwd_plain(x, y, dy, ds1, ds2, w_dw, w_pw, a,
+                                         b, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"separable_block_bwd runs on cuda or cpu, not "
+                         f"{x.device}")
+    cdt = x.dtype
+    batch, t, cin = x.shape
+    k, cout = w_dw.shape[0], w_pw.shape[2]
+    t_out, pad_lo = out_len(t, k, stride, padding)
+    wdw = w_dw.reshape(k, cin).to(cdt).contiguous()
+    wpw = w_pw.reshape(cin, cout).to(cdt).contiguous()
+    if a is not None:
+        a = a.float().contiguous()
+        b = b.float().contiguous()
+    # dy is read in the compute type or in f32, never rounded on the way
+    if dy.dtype != cdt:
+        dy = dy.float()
+    y = y.contiguous()
+    ds1 = ds1.float().contiguous()
+    ds2 = ds2.float().contiguous()
+    dx = torch.empty_like(x)
+    ddw = torch.empty((batch * t_out, cin), dtype=cdt, device=x.device)
+    # dw_dw, dw_pw, da, db: f32 sums the kernels add into with atomics
+    sums = torch.zeros(k * cin + cin * cout + 2 * cin, dtype=torch.float32,
+                       device=x.device)
+    _launch("separable_block_bwd", x, x.data_ptr(), _ptr(a), _ptr(b),
+            wdw.data_ptr(), wpw.data_ptr(), y.data_ptr(), dy.data_ptr(),
+            int(dy.dtype != cdt), ds1.data_ptr(), ds2.data_ptr(),
+            dx.data_ptr(), ddw.data_ptr(), sums.data_ptr(), batch, t, cin,
+            cout, k, stride, pad_lo, t_out)
+    LAUNCHES["bwd"] += 1
+    dw_dw, dw_pw, da, db = sums.split([k * cin, cin * cout, cin, cin])
+    if a is None:
+        da = db = None
+    return dx, dw_dw.view(k, cin), dw_pw.view(cin, cout), da, db
+
+
+class SeparableBlockFunction(torch.autograd.Function):
+    """The fused block with the backward kernel: ``apply(x, a, b, w_dw,
+    w_pw, stride, padding) -> (y, s1, s2)``, the forward ``fold`` with
+    the prologue and the statistics on."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w_dw, w_pw, stride, padding):
+        y, s1, s2 = fused_separable_block(x, w_dw, w_pw, a, b, stride=stride,
+                                          padding=padding, emit_stats=True,
+                                          fold_weights=True)
+        ctx.save_for_backward(x, a, b, w_dw, w_pw, y)
+        ctx.conv = dict(stride=stride, padding=padding)
+        ctx.set_materialize_grads(False)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2):
+        x, a, b, w_dw, w_pw, y = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        zeros = y.new_zeros(y.shape[2], dtype=torch.float32)
+        dx, dw_dw, dw_pw, da, db = separable_block_bwd(
+            x, y, dy, zeros if ds1 is None else ds1,
+            zeros if ds2 is None else ds2, w_dw, w_pw, a, b, **ctx.conv)
+        return (dx, da.to(a.dtype), db.to(b.dtype),
+                dw_dw.reshape(w_dw.shape).to(w_dw.dtype),
+                dw_pw.reshape(w_pw.shape).to(w_pw.dtype), None, None)
+
+
+def fused_separable_block_vjp(x: torch.Tensor, a: torch.Tensor,
+                              b: torch.Tensor, w_dw: torch.Tensor,
+                              w_pw: torch.Tensor, stride: int, padding: str):
+    """Differentiable fused block in the JAX argument order: ``(y, s1,
+    s2)``, with gradients to all five tensors through
+    ``separable_block_bwd``. The prologue is always on."""
+    if a is None or b is None:
+        raise ValueError("fused_separable_block_vjp needs a and b")
+    return SeparableBlockFunction.apply(x, a, b, w_dw, w_pw, stride, padding)
+
+
+def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
+    return None if v is None else v.data_ptr()
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    """Call ``csrc/<name>.cu``'s entry for x's dtype on the current
+    stream of x's device; raise if the launch was refused."""
+    lib = _library(name)
+    suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, f"{name}_{suffix}")(*args, stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# the argument types of each source's bf16 and f32 entries
+_ENTRY_ARGS = {
+    "separable_block": [_P] * 7 + [_I64] * 8 + [ctypes.c_int, _P],
+    "separable_block_bwd": [_P] * 7 + [ctypes.c_int] + [_P] * 5 + [_I64] * 8
+    + [_P],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel; one load per process."""
-    lib = ctypes.CDLL(str(build.build("separable_block")))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for fn in (lib.separable_block_bf16, lib.separable_block_f32):
-        fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64,
-                       i64, i64, ctypes.c_int, p]
+def _library(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``; one load per
+    process."""
+    lib = ctypes.CDLL(str(build.build(name)))
+    for suffix in ("bf16", "f32"):
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = _ENTRY_ARGS[name]
         fn.restype = ctypes.c_int
-    lib.separable_block_error_string.argtypes = [ctypes.c_int]
-    lib.separable_block_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from speech_recognition_tpu_torch.export.benchmark import (
-    separable_block_inputs,
+    separable_block_cotangents, separable_block_inputs,
 )
 from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
 from speech_recognition_tpu_torch.ops.kernels import separable_block as S
@@ -157,7 +157,7 @@ def test_separable_launches_are_counted_by_variant(cuda):
                             fold_weights=False, emit_stats=False)
     torch.cuda.synchronize()
     assert S.LAUNCHES == {"fold": before["fold"] + 1,
-                          "fuse": before["fuse"] + 2}
+                          "fuse": before["fuse"] + 2, "bwd": before["bwd"]}
 
 
 @pytest.mark.parametrize("fold", [False, True])
@@ -193,3 +193,103 @@ def test_separable_wrapper_rejects_non_contiguous_x(cuda):
     assert not x.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         S.fused_separable_block(x, w_dw, w_pw, a, b)
+
+
+# separable block backward against its plain version on the same inputs,
+# per output relative to its largest |value|: dx in f32 differs only by
+# ddw's f32 sum order; in bf16 a different f32 sum can flip ddw to the
+# neighbouring bf16 value, which moves a tap piece of dx by one bf16
+# step; the f32 sums dw_dw, dw_pw, da, db are taken with atomics in
+# another order, and in bf16 a flipped ddw moves one of their terms by a
+# bf16 step (chip_smoke.py states the measured errors)
+SEP_BWD_DX_TOL = {torch.float32: (0.0, 1e-5),
+                  torch.bfloat16: (2.0 ** -6, 2.0 ** -8)}
+SEP_BWD_SUM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _bwd_inputs(cuda, batch, shape, dtype, prologue=True):
+    x, w_dw, w_pw, a, b = _sep_inputs(cuda, batch, shape, dtype)
+    kw = dict(stride=shape[3], padding=shape[4])
+    if not prologue:
+        a = b = None
+    y = S.separable_block_plain(x, w_dw, w_pw, a, b, **kw)[0]
+    dy, ds1, ds2 = separable_block_cotangents(y.shape[1], shape[2],
+                                              batch=batch, dtype=dtype,
+                                              device=cuda)
+    return (x, y, dy, ds1, ds2, w_dw, w_pw, a, b), kw
+
+
+def _assert_bwd_close(got, want, dtype):
+    for name, g, w in zip(("dx", "dw_dw", "dw_pw", "da", "db"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        if name == "dx":
+            assert g.dtype == dtype
+            rtol, atol = SEP_BWD_DX_TOL[dtype]
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=atol * scale)
+        else:
+            assert g.dtype == torch.float32
+            torch.testing.assert_close(g, w.float(), rtol=0,
+                                       atol=SEP_BWD_SUM_RTOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SEP_SHAPES)
+@pytest.mark.parametrize("batch", [3, 7, 384])
+def test_separable_bwd_kernel_matches_plain_version(cuda, batch, shape,
+                                                    dtype):
+    args, kw = _bwd_inputs(cuda, batch, shape, dtype)
+    got = S.separable_block_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, S.separable_block_bwd_plain(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("prologue", [True, False])
+def test_separable_bwd_odd_valid_stride2_shape(cuda, prologue):
+    """T - k odd at stride 2, VALID: the last input row feeds no output
+    and gets dx = 0."""
+    args, kw = _bwd_inputs(cuda, 7, (398, 128, 192, 2, "VALID"),
+                           torch.float32, prologue)
+    got = S.separable_block_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, S.separable_block_bwd_plain(*args, **kw),
+                      torch.float32)
+    assert (got[0][:, -1] == 0).all() and (got[0][:, -2] != 0).any()
+
+
+def test_separable_bwd_launches_are_counted(cuda):
+    args, kw = _bwd_inputs(cuda, 3, SEP_SHAPES[1], torch.bfloat16)
+    before = dict(S.LAUNCHES)
+    S.separable_block_bwd(*args, **kw)
+    x, _, _, _, _, w_dw, w_pw, a, b = args
+    leaves = [v.clone().requires_grad_() for v in (x, a, b, w_dw, w_pw)]
+    y, s1, _ = S.fused_separable_block_vjp(*leaves, **kw)
+    torch.autograd.grad(y.float().sum() + s1.sum(), leaves)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == {"fold": before["fold"] + 1,
+                          "fuse": before["fuse"], "bwd": before["bwd"] + 2}
+
+
+@pytest.mark.parametrize("shape", SEP_SHAPES)
+def test_separable_vjp_on_card_matches_cpu(cuda, shape):
+    ins = _sep_inputs(cuda, 3, shape, torch.float32)
+    t_out, _ = S.out_len(shape[0], 3, shape[3], shape[4])
+    cts = separable_block_cotangents(t_out, shape[2], batch=3,
+                                     dtype=torch.float32, device=cuda)
+
+    def grads(device):
+        leaves = [v.detach().to(device).requires_grad_() for v in ins]
+        out = S.fused_separable_block_vjp(*leaves[:1], *leaves[3:],
+                                          *leaves[1:3], shape[3], shape[4])
+        return torch.autograd.grad(out, leaves,
+                                   [c.to(device) for c in cts])
+
+    for name, g, w in zip(("dx", "dw_dw", "dw_pw", "da", "db"),
+                          grads(cuda), grads("cpu")):
+        assert g.device.type == "cuda" and g.shape == w.shape, name
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
