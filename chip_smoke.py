@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once) and drives three paths:
+(one ``nvcc`` per source, all at once) and drives four paths:
 
 - decode+augment: holds the kernel against its plain PyTorch version at
   the train step's shapes, holds the flagship's logits on the card
@@ -22,19 +22,31 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   holds the gradients of ``fused_separable_block_vjp`` against autograd
   of the ATen block; then runs the forward+backward benchmark
   (``benchmark_separable_block_grads``) and checks that it launched the
-  backward and ``fold`` kernels as often as it called them.
+  backward and ``fold`` kernels as often as it called them;
+- data-parallel training (``[dp]``): two ranks, spawned processes joined
+  by NCCL when each has a card of its own and by gloo when they share
+  one. Each rank builds and replicates the full-corpus bank, holds
+  ``decode_augment_sharded`` against its plain version on its rows,
+  holds a 2-rank step in f32 and in f64 against one process on the batch,
+  trains 20 bf16 steps at global batch 384 and sweeps validation; the
+  parent checks that the kernel launched once per step on every rank,
+  that the losses and the parameters are the same on both ranks.
 
-Any failure raises and exits non-zero; without a CUDA device it exits
-non-zero before printing any result. The last two lines of standard
-output are a JSON record of the kernels and ``{"ok": true, "device":
-{...}}``.
+Any failure, on any rank, raises and exits non-zero; without a CUDA
+device it exits non-zero before printing any result. The last two lines
+of standard output are a JSON record of the kernels (each with its
+bound: the larger of its bytes over 3.35 TB/s and its operations over
+the peak rate of its type, the H100 SXM data sheet's) and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import copy
+import hashlib
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -77,6 +89,29 @@ SEP_BWD_SUM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # test's bound: the kernel recomputes the depthwise chain in another order)
 VJP_GRAD_RTOL = 5e-4
 BWD_NAMES = ("dx", "dw_dw", "dw_pw", "da", "db")
+# the [dp] phase
+DP_RANKS = 2
+DP_TIMEOUT_S = 600
+# one 2-rank step against one process on the same global batch, weights
+# and dropout masks (TF32 off): (loss relative to its value, median and
+# max over a gradient's entries of the error relative to its max |value|).
+# The two take the BN statistics and the gradient sums in another order
+# (two halves, then the all-reduce), and cuDNN may pick other algorithms
+# at batch 192 than at 384. f32 itself is only so accurate here: on one
+# process its gradients differ from f64's by a median of up to 9e-4 of
+# max |g| in the first layers (the BN backward's sums cancel) and by up
+# to 1.9e-2 in the row of an output channel where a BN output lies within
+# f32 rounding of relu6's clamp and takes its gradient on one side only
+# (CPU, batch 48). So the f32 bounds are f32's own error, several times
+# over; per-rank BN statistics miss them by far (CPU, batch 48: loss 3e-3,
+# median 0.24). In f64 no clamp is that close and the sums keep ~1e-16, so
+# the f64 bounds are tight.
+DP_TOL = {torch.float32: (1e-5, 1e-2, 1e-1),
+          torch.float64: (1e-12, 1e-12, 1e-9)}
+# NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
+# cores) and bf16 (tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def log(msg: str) -> None:
@@ -89,6 +124,71 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float, dtype: torch.dtype):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move ``nbytes`` and do ``flops`` operations of ``dtype``."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def decode_augment_bound(bank, bg_flat, file_ids, shifts, fg_vol, bg_pos,
+                         bg_vol):
+    """(ms, bound_by, bytes) of one decode+augment call on these inputs:
+    the bank rows that a row with fg_vol != 0 reads (each distinct row
+    once), the background samples that a row with bg_vol != 0 reads (the
+    union of their windows), the five [B] vectors and the [B, T] f32
+    output; 3 f32 operations per output sample."""
+    b, t = file_ids.shape[0], bank.shape[1]
+    bank_rows = torch.unique(file_ids[fg_vol != 0]).numel()
+    pos = bg_pos[bg_vol != 0].long()
+    edges = torch.zeros(bg_flat.shape[0] + 1, dtype=torch.int64,
+                        device=pos.device)
+    edges.index_add_(0, pos, torch.ones_like(pos))
+    edges.index_add_(0, pos + t, -torch.ones_like(pos))
+    bg_samples = int((edges.cumsum(0)[:-1] > 0).sum())
+    nbytes = (bank_rows * t * bank.element_size()
+              + bg_samples * bg_flat.element_size()
+              + sum(v.numel() * v.element_size()
+                    for v in (file_ids, shifts, fg_vol, bg_pos, bg_vol))
+              + b * t * 4)
+    return (*bound(nbytes, 3 * b * t, torch.float32), nbytes)
+
+
+def separable_bounds(shapes, batch: int, backward: bool):
+    """(ms, bound_by) of the separable block in bf16 with the prologue
+    and the statistics, summed over ``shapes``. Forward: x, the weights,
+    a and b in; y, s1 and s2 out; the pointwise product (2 B To Cin Cout)
+    plus the depthwise taps, the prologue and the statistics. Backward:
+    x, y, dy, ds1, ds2, the weights, a and b in; dx, dw_dw, dw_pw, da
+    and db out; the two products (4 B To Cin Cout) plus the recomputed
+    taps, the taps of ddw into dx and dw_dw, the prologue and its
+    gradient, and dy's statistics terms."""
+    from speech_recognition_tpu_torch.ops.kernels.separable_block import (
+        out_len,
+    )
+    total, kinds = 0.0, set()
+    for t, cin, cout, stride, padding in shapes:
+        to = out_len(t, 3, stride, padding)[0]
+        x, y = batch * t * cin * 2, batch * to * cout * 2
+        weights = 3 * cin * 2 + cin * cout * 2 + 2 * cin * 4
+        taps = 2 * 3 * batch * to * cin
+        if backward:
+            nbytes = 2 * x + 2 * y + weights + 2 * cout * 4 \
+                + (3 * cin + cin * cout + 2 * cin) * 4
+            flops = (4 * batch * to * cin * cout + 3 * taps
+                     + 4 * batch * t * cin + 3 * batch * to * cout)
+        else:
+            nbytes = x + y + weights + 2 * cout * 4
+            flops = (2 * batch * to * cin * cout + taps
+                     + 2 * batch * t * cin + 3 * batch * to * cout)
+        ms, kind = bound(nbytes, flops, torch.bfloat16)
+        total += ms
+        kinds.add(kind)
+    return total, "/".join(sorted(kinds))
 
 
 def timed_build(name: str):
@@ -221,6 +321,10 @@ def separable_phase(device, card: str, build_s: float):
         f"{SEPARABLE_ITERS} calls); "
         f"launches in the benchmark {launches}; phase "
         f"{time.perf_counter() - phase_t0:.1f} s | {card}")
+    bound_ms, bound_by = separable_bounds(SEPARABLE_SHAPES, BATCH,
+                                          backward=False)
+    log(f"[separable] bound over the {len(records)} shapes: "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return [{
         "name": f"separable_block/{variant}",
         "route": "cuda",
@@ -231,6 +335,9 @@ def separable_phase(device, card: str, build_s: float):
         "max_abs_err": worst[variant],
         "ms": totals[variant],
         "plain_ms": totals["plain"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     } for variant in ("fuse", "fold")]
 
 
@@ -405,6 +512,10 @@ def separable_bwd_phase(device, card: str, build_s: float):
         + f" (best of {SEPARABLE_RUNS} x {SEPARABLE_ITERS} calls); launches "
         f"in the benchmark {launches}; phase "
         f"{time.perf_counter() - phase_t0:.1f} s | {card}")
+    bound_ms, bound_by = separable_bounds(SEPARABLE_SHAPES, BATCH,
+                                          backward=True)
+    log(f"[separable-bwd] bound over the {len(records)} shapes: "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return {
         "name": "separable_block/bwd",
         "route": "cuda",
@@ -415,21 +526,340 @@ def separable_bwd_phase(device, card: str, build_s: float):
         "max_abs_err": worst,
         "ms": totals["bwd"],
         "plain_ms": totals["bwd_plain"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }
 
 
-def edge_case_draws(trainer, ds):
-    """A training batch's draws with the kernel's edge cases written in:
-    zero and most-negative shifts, silence rows, bg_vol 0, the largest
-    legal background position and the top file ids of the bank."""
+def edge_case_draws(trainer, ds, starts=(0,)):
+    """A training batch's draws with the kernel's edge cases written in
+    from each row of ``starts``: zero and most-negative shifts, silence
+    rows, bg_vol 0, the largest legal background position and the top
+    file ids of the bank."""
     d = trainer.draw_batch()
     n, m = ds.num_clips, ds.background.flat.shape[0]
-    d.shifts[:4] = torch.tensor([0, -500, -1, -T + 1])
-    d.fg_vol[4:8] = 0.0
-    d.bg_vol[8:12] = 0.0
-    d.bg_pos[12:16] = m - T
-    d.file_ids[16:20] = torch.arange(n - 4, n)
+    for i in starts:
+        d.shifts[i:i + 4] = torch.tensor([0, -500, -1, -T + 1])
+        d.fg_vol[i + 4:i + 8] = 0.0
+        d.bg_vol[i + 8:i + 12] = 0.0
+        d.bg_pos[i + 12:i + 16] = m - T
+        d.file_ids[i + 16:i + 20] = torch.arange(n - 4, n)
     return d
+
+
+def state_digest(model) -> str:
+    """sha256 of every parameter and buffer, bit for bit."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_rank(rank: int, world: int, init_method: str, backend: str,
+            results) -> None:
+    """One rank of the [dp] phase (a spawned process). It prints nothing:
+    it puts one dict of results on ``results``; an exception fails the
+    phase."""
+    from speech_recognition_tpu_torch.config import (
+        AugmentConfig, prepare_model_settings,
+    )
+    from speech_recognition_tpu_torch.data.device_bank import (
+        synthetic_device_dataset,
+    )
+    from speech_recognition_tpu_torch.export.benchmark import (
+        benchmark_train, time_calls,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import sharded as KS
+    from speech_recognition_tpu_torch.parallel.collectives import all_reduce_
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        host_replicated, initialize_distributed,
+    )
+    from speech_recognition_tpu_torch.parallel.mesh import (
+        make_mesh, rank_device, shard_batch,
+    )
+    from speech_recognition_tpu_torch.train.loop import Trainer
+
+    device = rank_device(rank)
+    torch.cuda.set_device(device)
+    initialize_distributed(init_method, world, rank, backend)
+    mesh = make_mesh(device)
+    out = {"rank": rank, "device": str(device)}
+
+    def barrier():
+        all_reduce_(torch.zeros(1, device=device), mesh)
+        torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    ds = synthetic_device_dataset(
+        device, num_train=NUM_TRAIN, num_val=NUM_VAL, num_pseudo=NUM_PSEUDO,
+        num_classes=12, num_background=NUM_BACKGROUND,
+        background_len=BACKGROUND_LEN)
+    torch.cuda.synchronize(device)
+    out["data_s"] = time.perf_counter() - t0
+    barrier()
+    t0 = time.perf_counter()
+    host_replicated(ds, mesh)
+    torch.cuda.synchronize(device)
+    out["replicate_s"] = time.perf_counter() - t0
+    settings = prepare_model_settings(label_count=12)
+    augment = AugmentConfig(pseudo_frequency=0.6)
+
+    # the kernel on this rank's rows against its plain version, on the
+    # global draws with edge cases in both ranks' rows
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dp = Trainer(MODEL, settings, ds, augment=augment, batch_size=BATCH,
+                 compute_dtype="float32", mesh=mesh)
+    d = edge_case_draws(dp, ds, starts=range(0, BATCH, BATCH // world))
+    bg = ds.background.flat
+    errs = []
+    for index_dtype in (torch.int64, torch.int32):
+        args = (mesh, ds.wav_bank, bg, d.file_ids.to(index_dtype),
+                d.shifts.to(index_dtype), d.fg_vol, d.bg_pos.to(index_dtype),
+                d.bg_vol)
+        got = KS.decode_augment_sharded(*args)
+        want = KS.decode_augment_sharded_reference(*args)
+        torch.cuda.synchronize(device)
+        if got.shape != (BATCH // world, T) or not torch.isfinite(got).all():
+            raise RuntimeError(f"rank {rank}: sharded kernel output "
+                               f"{tuple(got.shape)} or non-finite values")
+        errs.append(float((got - want).abs().max()))
+    out["max_abs_err"] = max(errs)
+    if out["max_abs_err"] > KERNEL_ATOL:
+        raise RuntimeError(f"rank {rank}: decode_augment_sharded vs plain "
+                           f"max abs err {errs} > {KERNEL_ATOL}")
+    args = (mesh, ds.wav_bank, bg, d.file_ids, d.shifts, d.fg_vol, d.bg_pos,
+            d.bg_vol)
+    out["bound_ms"], out["bound_by"], out["bytes"] = decode_augment_bound(
+        ds.wav_bank, bg, *shard_batch(args[3:], mesh))
+    for r in range(world):      # one rank at a time on a shared card
+        barrier()
+        if r == rank:
+            plain_ms, kernel_ms, plain_ms2, kernel_ms2 = (
+                time_calls(fn, 50, runs=1) for fn in 2 * (
+                    lambda: KS.decode_augment_sharded_reference(*args),
+                    lambda: KS.decode_augment_sharded(*args)))
+            out["ms"] = min(kernel_ms, kernel_ms2)
+            out["plain_ms"] = min(plain_ms, plain_ms2)
+    barrier()
+
+    # one 2-rank step against one process on the same global batch,
+    # weights and dropout masks, in f32 and in f64
+    ref = Trainer(MODEL, settings, ds, augment=augment, batch_size=BATCH,
+                  compute_dtype="float32")
+    draw_state = dp.generator.get_state()
+    out["parity"] = {}
+    ref_grads = {}
+    for dtype in DP_TOL:
+        dp.generator.set_state(draw_state)
+        ref.generator.set_state(draw_state)
+        dp_state, ref_state = dp.init_state(), ref.init_state()
+        dp_state.model.to(dtype)
+        ref_state.model.to(dtype)
+        got = dp._update_step(dp_state, dp.build_batch(d).to(dtype),
+                              shard_batch(d.labels, mesh))
+        want = ref._update_step(ref_state, ref.build_batch(d).to(dtype),
+                                d.labels)
+        ref_grads[dtype] = {n: p.grad.double() for n, p in
+                            ref_state.model.named_parameters()}
+        medians, maxima = {}, {}
+        for name, p in dp_state.model.named_parameters():
+            g = ref_grads[dtype][name]
+            e = (p.grad - g).abs() / g.abs().max().clamp_min(1e-30)
+            medians[name], maxima[name] = float(e.median()), float(e.max())
+        loss_err = abs(float(got["loss"]) - float(want["loss"])) \
+            / abs(float(want["loss"]))
+        name = str(dtype)[6:]
+        worst = max(maxima, key=maxima.get)
+        worst_median = max(medians, key=medians.get)
+        out["parity"][name] = (loss_err, worst_median, medians[worst_median],
+                               worst, maxima[worst])
+        loss_tol, median_tol, max_tol = DP_TOL[dtype]
+        if loss_err > loss_tol or medians[worst_median] > median_tol \
+                or maxima[worst] > max_tol:
+            raise RuntimeError(f"rank {rank}: {world}-rank {name} step vs "
+                               f"one process: {out['parity'][name]}")
+        del dp_state, ref_state, got, want
+    # f32's own error, for scale: one process, f32 against f64
+    out["f32_vs_f64"] = max(
+        float(((g - ref_grads[torch.float64][n]).abs()
+               / ref_grads[torch.float64][n].abs().max()).median())
+        for n, g in ref_grads[torch.float32].items())
+    del dp, ref, ref_grads
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+
+    # the path: 20 bf16 train steps, then one validation sweep, with the
+    # counts set to 0 just before
+    trainer = Trainer(MODEL, settings, ds, augment=augment, batch_size=BATCH,
+                      mesh=mesh)
+    if trainer.compute_dtype != "bfloat16":
+        raise RuntimeError(f"compute dtype {trainer.compute_dtype}")
+    state = trainer.init_state()
+    barrier()
+    torch.cuda.reset_peak_memory_stats(device)
+    KS.LAUNCHES = K.LAUNCHES = 0
+    result = benchmark_train(trainer, state, steps=STEPS, warmup=WARMUP)
+    t0 = time.perf_counter()
+    conf, val_loss = trainer.evaluate(state, "validation")
+    out["eval_s"] = time.perf_counter() - t0
+    out["launches"] = {"decode_augment_sharded": KS.LAUNCHES,
+                       "decode_augment": K.LAUNCHES}
+    out.update(losses=result["losses"], ms_per_step=result["ms_per_step"],
+               clips_per_sec=result["clips_per_sec"],
+               wall_ms_per_step=result["wall_ms_per_step"],
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               conf=conf.tolist(), val_loss=val_loss,
+               digest=state_digest(state.model))
+
+    # what one all-reduce of the step costs on this backend, host clock
+    # around whole calls: a BN layer's [C + 1] statistics (12 layers x 4,
+    # and the metrics: 49 small ones per step) and the one gradient bucket
+    numel = sum(p.numel() for p in state.model.parameters())
+    out["all_reduce_ms"] = {}
+    for label, n, reps in (("[513]", 513, 50), ("bucket", numel, 5)):
+        x = torch.zeros(n, device=device)
+        barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            all_reduce_(x, mesh)
+        torch.cuda.synchronize(device)
+        out["all_reduce_ms"][label] = 1e3 * (time.perf_counter() - t0) / reps
+    results.put(out)
+    barrier()
+    torch.distributed.destroy_process_group()
+
+
+def dp_phase(card: str):
+    """The [dp] phase: spawn the ranks, collect and check their results.
+    Returns the ``kernels`` entry of ``decode_augment_sharded``."""
+    import torch.multiprocessing as mp
+
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        default_backend,
+    )
+    from speech_recognition_tpu_torch.parallel.mesh import rank_device
+
+    world = DP_RANKS
+    backend = default_backend(world)
+    devices = {r: str(rank_device(r)) for r in range(world)}
+    shared = len(set(devices.values())) < world
+    log(f"[dp] {world} ranks, backend {backend}, rank -> device {devices}; "
+        f"{BATCH // world} clips per rank of a global batch of {BATCH}"
+        + ("; the ranks share one card" if shared else ""))
+    phase_t0 = time.perf_counter()
+    queue = mp.get_context("spawn").SimpleQueue()
+    procs = mp.spawn(dp_rank, nprocs=world, join=False, args=(
+        world, f"tcp://localhost:{free_port()}", backend, queue))
+    results = {}
+
+    def collect():
+        while not queue.empty():
+            r = queue.get()
+            results[r["rank"]] = r
+
+    try:
+        while not procs.join(timeout=1):    # raises if a rank failed
+            collect()
+            if time.perf_counter() - phase_t0 > DP_TIMEOUT_S:
+                raise RuntimeError(f"[dp] ranks still running after "
+                                   f"{DP_TIMEOUT_S} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+    collect()
+    if sorted(results) != list(range(world)):
+        raise RuntimeError(f"[dp] results from ranks {sorted(results)}")
+    rs = [results[r] for r in range(world)]
+
+    for r in rs:
+        log(f"[dp] rank {r['rank']} on {r['device']}: bank set up in "
+            f"{r['data_s']:.1f} s, replicated from rank 0 in "
+            f"{r['replicate_s']:.2f} s; decode_augment_sharded "
+            f"[{BATCH // world}, {T}] max abs err {r['max_abs_err']:.3g} "
+            f"(tol {KERNEL_ATOL}), kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bytes'] / 1e6:.1f} MB) | {card}")
+        for dtype, tol in DP_TOL.items():
+            loss_err, worst_median, median, worst, worst_err = \
+                r["parity"][str(dtype)[6:]]
+            log(f"[dp] rank {r['rank']} {str(dtype)[6:]} (TF32 off) "
+                f"{world}-rank step vs one process on the global batch: "
+                f"loss rel err "
+                f"{loss_err:.3g} (tol {tol[0]}); gradient error / max "
+                f"|value|: worst median {median:.3g} in {worst_median} (tol "
+                f"{tol[1]}), worst max {worst_err:.3g} in {worst} (tol "
+                f"{tol[2]})")
+        log(f"[dp] rank {r['rank']} one process, f32 against f64: worst "
+            f"median gradient error / max |value| {r['f32_vs_f64']:.3g}")
+    steps = STEPS + WARMUP
+    expected = (NUM_VAL // BATCH) * BATCH
+    for r in rs:
+        if r["launches"] != {"decode_augment_sharded": steps,
+                             "decode_augment": steps}:
+            raise RuntimeError(f"[dp] rank {r['rank']} launched "
+                               f"{r['launches']} in {steps} train steps")
+        if len(r["losses"]) != steps or not np.isfinite(r["losses"]).all():
+            raise RuntimeError(f"[dp] rank {r['rank']} losses {r['losses']}")
+        if sum(map(sum, r["conf"])) != expected \
+                or not np.isfinite(r["val_loss"]):
+            raise RuntimeError(f"[dp] rank {r['rank']}: confusion sums to "
+                               f"{sum(map(sum, r['conf']))}, expected "
+                               f"{expected}; val loss {r['val_loss']}")
+    for key in ("losses", "digest", "conf", "val_loss"):
+        if any(r[key] != rs[0][key] for r in rs):
+            raise RuntimeError(f"[dp] {key} differs between ranks: "
+                               f"{[r[key] for r in rs]}")
+    log(f"[dp] losses {[round(v, 4) for v in rs[0]['losses']]}, equal on "
+        f"every rank; parameters and BN statistics bit-identical (sha256 "
+        f"{rs[0]['digest'][:16]})")
+    scaling = ("; the ranks share one card, so this is no measure of "
+               "scaling" if shared else "")
+    for r in rs:
+        log(f"[dp] rank {r['rank']} {MODEL} bf16 global batch {BATCH}: "
+            f"{r['ms_per_step']:.3f} ms/step, {r['clips_per_sec']:.0f} "
+            f"global clips/s (CUDA events over {STEPS} steps after "
+            f"{WARMUP}; host clock {r['wall_ms_per_step']:.3f} ms/step); "
+            f"peak memory {r['peak_gb']:.2f} GB{scaling} | {card}")
+    conf = np.asarray(rs[0]["conf"])
+    log(f"[dp] one {backend} all-reduce on the card's tensors, host clock: "
+        + "; ".join(f"rank {r['rank']} " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in r["all_reduce_ms"].items())
+            for r in rs) + f" | {card}")
+    log(f"[dp] validation: {conf.sum()} clips in {rs[0]['eval_s']:.2f} s, "
+        f"accuracy {np.trace(conf) / conf.sum():.4f}, loss "
+        f"{rs[0]['val_loss']:.4f}; launches per rank in the main path "
+        f"{rs[0]['launches']}; phase {time.perf_counter() - phase_t0:.1f} s")
+    slowest = max(rs, key=lambda r: r["ms"])
+    return {
+        "name": "decode_augment_sharded",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/decode_augment.cu",
+        "replaces": "speech_recognition_tpu/ops/pallas/sharded.py:22",
+        "launches": sum(r["launches"]["decode_augment_sharded"]
+                        for r in rs),
+        "max_abs_err": max(r["max_abs_err"] for r in rs),
+        "ms": slowest["ms"],
+        "plain_ms": slowest["plain_ms"],
+        "bound_ms": slowest["bound_ms"],
+        "bound_by": slowest["bound_by"],
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -516,11 +946,12 @@ def main() -> int:
             lambda: K.decode_augment_reference(*args),
             lambda: K.decode_augment(*args)))
     kernel_ms, plain_ms = min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2)
-    mbytes = BATCH * T * (2 + 4 + 4) / 1e6
+    bound_ms, bound_by, nbytes = decode_augment_bound(*args)
     log(f"[kernel] decode_augment B={BATCH} T={T}: max abs err {max_err:.3g}"
         f" (int64 {errs[0]:.3g}, int32 {errs[1]:.3g}; tol {KERNEL_ATOL}); "
-        f"kernel {kernel_ms:.4f} ms ({mbytes / kernel_ms:.0f} GB/s of "
-        f"{mbytes:.1f} MB), plain {plain_ms:.4f} ms | {card}")
+        f"kernel {kernel_ms:.4f} ms ({nbytes / 1e6 / kernel_ms:.0f} GB/s of "
+        f"{nbytes / 1e6:.1f} MB; bound {bound_ms:.4f} ms, {bound_by}), "
+        f"plain {plain_ms:.4f} ms | {card}")
 
     # 4. the separable block: kernel against plain, then its benchmark
     separable_kernels = separable_phase(device, card,
@@ -590,6 +1021,11 @@ def main() -> int:
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss {val_loss:.4f}; "
         f"kernel launches in the main path: {launches}")
 
+    # 7. data-parallel training, in processes of their own
+    del trainer, state, ds, d, bg, args
+    torch.cuda.empty_cache()
+    dp_kernel = dp_phase(card)
+
     print(json.dumps({"kernels": [{
         "name": "decode_augment",
         "route": "cuda",
@@ -599,7 +1035,10 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }] + separable_kernels}))
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }] + separable_kernels + [dp_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

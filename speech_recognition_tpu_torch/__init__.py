@@ -6,9 +6,11 @@ The package mirrors the JAX package's module paths: the counterpart of
 and never ``jax``, ``flax``, ``optax`` or the JAX package itself.
 
 Ported so far: the flagship train step and eval step
-(``conv_1d_time_sliced_with_attention`` on raw waveforms) with the fused
-decode+augment data path as a hand-written CUDA kernel
-(``csrc/decode_augment.cu``). ROADMAP.md lists what is still to come.
+(``conv_1d_time_sliced_with_attention`` on raw waveforms), on one card or
+data-parallel over several (``parallel/``), with the fused decode+augment
+data path as a hand-written CUDA kernel (``csrc/decode_augment.cu``), and
+the fused separable block's forward and backward kernels. ROADMAP.md
+lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Benchmarks on the card: the train step (port of
+"""Benchmarks on the card: the train step, on one card or one rank of a
+data-parallel mesh (port of
 speech_recognition_tpu/export/benchmark.py::benchmark_train), and the
 separable-block kernels at the flagship's trunk shapes: the forward
 (port of scripts/bench_separable_kernel.py) and the forward with its
@@ -52,22 +53,26 @@ def benchmark_train(trainer, state, steps: int = 100,
     Runs ``warmup`` untimed steps, then ``steps`` timed ones. Returns
     ms/step and clips/s from the CUDA events (plus the host-clock time
     for comparison) and the losses of all ``warmup + steps`` steps.
+    Under data parallelism each rank calls it and times its own steps on
+    its own device; ``batch_size`` and clips/s are the global batch's.
     """
-    if trainer.device.type != "cuda":
+    device = trainer.device
+    if device.type != "cuda":
         raise RuntimeError(f"benchmark_train measures a CUDA device; the "
-                           f"trainer runs on {trainer.device}")
+                           f"trainer runs on {device}")
     losses: List[torch.Tensor] = []
     for _ in range(warmup):
         losses.append(trainer.train_step(state)["loss"])
-    torch.cuda.synchronize(trainer.device)
+    torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    stream = torch.cuda.current_stream(device)
     t0 = time.perf_counter()
-    start.record()
+    start.record(stream)
     for _ in range(steps):
         losses.append(trainer.train_step(state)["loss"])
-    end.record()
-    torch.cuda.synchronize(trainer.device)
+    end.record(stream)
+    torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     ms = start.elapsed_time(end) / steps
     return {
@@ -77,7 +82,8 @@ def benchmark_train(trainer, state, steps: int = 100,
         "clips_per_sec": trainer.batch_size * 1e3 / ms,
         "wall_ms_per_step": 1e3 * wall / steps,
         "losses": torch.stack(losses).cpu().tolist(),
-        "device": torch.cuda.get_device_name(trainer.device),
+        "ranks": trainer.mesh.size,
+        "device": torch.cuda.get_device_name(device),
     }
 
 

@@ -7,6 +7,10 @@ moves weights between the two.
 Parameters are created empty and filled by ``init_parameters`` from an
 explicit ``torch.Generator`` (glorot-uniform kernels, zero biases, BN
 scale 1 / bias 0), so no layer draws from torch's global RNG.
+
+Under data parallelism (``use_mesh``) BatchNorm takes its statistics over
+the global batch and Dropout draws its masks at the global batch's shape,
+so that a step on W ranks is the one-device step on the same batch.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+from speech_recognition_tpu_torch.parallel.collectives import all_reduce_sum
 
 # Keras defaults, as in the JAX package. Flax's momentum 0.99 weighs the
 # old running value (torch's convention would call this momentum 0.01).
@@ -93,6 +98,15 @@ class BatchNorm(nn.Module):
     ``r <- 0.99 * r + 0.01 * batch_stat`` with the biased variance, as
     flax does (torch's own BatchNorm folds in the unbiased variance).
     Statistics are taken in at least float32 whatever the activation dtype.
+
+    With a ``mesh`` of more than one rank (``use_mesh``) the statistics are
+    those of the global batch, as the JAX package's SPMD step takes them:
+    the per-channel sum and the count are all-reduced to the global mean,
+    then the sum of squared deviations to the biased variance (two passes,
+    like ``var_mean``), and the input is normalised by hand with them. The
+    all-reduces are differentiable, so the gradient is the global batch's
+    too. ``torch.nn.SyncBatchNorm`` is not used: it refuses CPU tensors
+    and folds the unbiased variance into ``running_var``.
     """
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM,
@@ -100,6 +114,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -117,26 +132,47 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(at_least_float32(x), dim=(0, 2),
                                        correction=0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=self.eps)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = at_least_float32(x)
+        count = xf.new_full((1,), x.shape[0] * x.shape[2])
+        stats = all_reduce_sum(torch.cat([xf.sum((0, 2)), count]), self.mesh)
+        mean = stats[:-1] / stats[-1]
+        d = xf - mean[:, None]
+        var = all_reduce_sum(d.square().sum((0, 2)), self.mesh) / stats[-1]
+        self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (d * scale[:, None] + self.bias[:, None]).to(x.dtype)
 
 
 class Dropout(nn.Module):
     """Dropout that draws its mask from an explicit ``torch.Generator``.
 
     Inverted dropout as flax does it: kept values are scaled by 1/(1-p).
-    Identity in eval mode or at p = 0.
+    Identity in eval mode or at p = 0. With a ``mesh`` (``use_mesh``) the
+    mask is drawn at the global batch's shape and this rank keeps its
+    rows of it, so every rank's generator stays in step and W ranks draw
+    the one-device mask.
     """
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
+        self.mesh = None
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator = None) -> torch.Tensor:
@@ -145,8 +181,12 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("train-mode dropout needs an explicit "
                              "torch.Generator")
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) >= self.p
+        shape, rows = x.shape, slice(None)
+        if self.mesh is not None and self.mesh.size > 1:
+            shape = (x.shape[0] * self.mesh.size, *x.shape[1:])
+            rows = self.mesh.rows(shape[0])
+        keep = torch.rand(shape, generator=generator,
+                          device=x.device)[rows] >= self.p
         return x * keep / (1.0 - self.p)
 
 
@@ -189,6 +229,14 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=tuple(range(2, x.ndim)))
+
+
+def use_mesh(module: nn.Module, mesh) -> None:
+    """Hand a data-parallel ``Mesh`` (or None) to every BatchNorm and
+    Dropout of ``module``."""
+    for m in module.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.mesh = mesh
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions and the train step on the card. Marked ``cuda``; without a CUDA device
+versions (decode+augment also per rank of a data-parallel mesh) and the
+train step on the card. Marked ``cuda``; without a CUDA device
 they skip. This file imports no jax, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -67,6 +68,24 @@ def test_kernel_matches_plain_version(cuda, batch, index_dtype):
     want = K.decode_augment_reference(*args)
     assert got.shape == (batch, T) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_kernel_rows_make_the_unsharded_batch(cuda, world):
+    from speech_recognition_tpu_torch.ops.kernels import sharded as KS
+    from speech_recognition_tpu_torch.parallel.mesh import Mesh
+
+    args = _inputs(cuda, 384, 64, torch.int64)
+    before = KS.LAUNCHES
+    rows = [KS.decode_augment_sharded(Mesh(r, world), *args)
+            for r in range(world)]
+    torch.cuda.synchronize()
+    assert KS.LAUNCHES == before + world
+    for r, got in enumerate(rows):
+        assert got.shape == (384 // world, T)
+        want = KS.decode_augment_sharded_reference(Mesh(r, world), *args)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(torch.cat(rows), K.decode_augment(*args))
 
 
 def test_kernel_writes_out_of_range_rows_as_nan(cuda):
