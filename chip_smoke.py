@@ -22,7 +22,11 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   holds the gradients of ``fused_separable_block_vjp`` against autograd
   of the ATen block; then runs the forward+backward benchmark
   (``benchmark_separable_block_grads``) and checks that it launched the
-  backward and ``fold`` kernels as often as it called them;
+  backward and ``fold`` kernels as often as it called them; prints each
+  shape's backward time against its bound, the time of the backward's
+  two products alone in cuBLAS (a yardstick the port never calls), a
+  ``torch.profiler`` account of the backward's kernels and ``ptxas -v``'s
+  registers, shared memory and spills for each of them;
 - data-parallel training (``[dp]``): two ranks, spawned processes joined
   by NCCL when each has a card of its own and by gloo when they share
   one. Each rank builds and replicates the full-corpus bank, holds
@@ -46,6 +50,7 @@ import concurrent.futures
 import copy
 import hashlib
 import json
+import re
 import socket
 import subprocess
 import sys
@@ -158,37 +163,42 @@ def decode_augment_bound(bank, bg_flat, file_ids, shifts, fg_vol, bg_pos,
     return (*bound(nbytes, 3 * b * t, torch.float32), nbytes)
 
 
-def separable_bounds(shapes, batch: int, backward: bool):
-    """(ms, bound_by) of the separable block in bf16 with the prologue
-    and the statistics, summed over ``shapes``. Forward: x, the weights,
-    a and b in; y, s1 and s2 out; the pointwise product (2 B To Cin Cout)
-    plus the depthwise taps, the prologue and the statistics. Backward:
-    x, y, dy, ds1, ds2, the weights, a and b in; dx, dw_dw, dw_pw, da
-    and db out; the two products (4 B To Cin Cout) plus the recomputed
-    taps, the taps of ddw into dx and dw_dw, the prologue and its
-    gradient, and dy's statistics terms."""
+def separable_bound(shape, batch: int, backward: bool):
+    """(ms, bound_by, bytes, FLOP) of the separable block in bf16 with the
+    prologue and the statistics at one ``(T, Cin, Cout, stride,
+    padding)``. Forward: x, the weights, a and b in; y, s1 and s2 out;
+    the pointwise product (2 B To Cin Cout) plus the depthwise taps, the
+    prologue and the statistics. Backward: x, y, dy, ds1, ds2, the
+    weights, a and b in; dx, dw_dw, dw_pw, da and db out; the two
+    products (4 B To Cin Cout) plus the recomputed taps, the taps of ddw
+    into dx and dw_dw, the prologue and its gradient, and dy's
+    statistics terms."""
     from speech_recognition_tpu_torch.ops.kernels.separable_block import (
         out_len,
     )
-    total, kinds = 0.0, set()
-    for t, cin, cout, stride, padding in shapes:
-        to = out_len(t, 3, stride, padding)[0]
-        x, y = batch * t * cin * 2, batch * to * cout * 2
-        weights = 3 * cin * 2 + cin * cout * 2 + 2 * cin * 4
-        taps = 2 * 3 * batch * to * cin
-        if backward:
-            nbytes = 2 * x + 2 * y + weights + 2 * cout * 4 \
-                + (3 * cin + cin * cout + 2 * cin) * 4
-            flops = (4 * batch * to * cin * cout + 3 * taps
-                     + 4 * batch * t * cin + 3 * batch * to * cout)
-        else:
-            nbytes = x + y + weights + 2 * cout * 4
-            flops = (2 * batch * to * cin * cout + taps
-                     + 2 * batch * t * cin + 3 * batch * to * cout)
-        ms, kind = bound(nbytes, flops, torch.bfloat16)
-        total += ms
-        kinds.add(kind)
-    return total, "/".join(sorted(kinds))
+    t, cin, cout, stride, padding = shape
+    to = out_len(t, 3, stride, padding)[0]
+    x, y = batch * t * cin * 2, batch * to * cout * 2
+    weights = 3 * cin * 2 + cin * cout * 2 + 2 * cin * 4
+    taps = 2 * 3 * batch * to * cin
+    if backward:
+        nbytes = 2 * x + 2 * y + weights + 2 * cout * 4 \
+            + (3 * cin + cin * cout + 2 * cin) * 4
+        flops = (4 * batch * to * cin * cout + 3 * taps
+                 + 4 * batch * t * cin + 3 * batch * to * cout)
+    else:
+        nbytes = x + y + weights + 2 * cout * 4
+        flops = (2 * batch * to * cin * cout + taps
+                 + 2 * batch * t * cin + 3 * batch * to * cout)
+    return (*bound(nbytes, flops, torch.bfloat16), nbytes, flops)
+
+
+def separable_bounds(shapes, batch: int, backward: bool):
+    """(ms, bound_by) of the separable block summed over ``shapes`` (see
+    ``separable_bound``)."""
+    parts = [separable_bound(s, batch, backward) for s in shapes]
+    return (sum(p[0] for p in parts),
+            "/".join(sorted({p[1] for p in parts})))
 
 
 def timed_build(name: str):
@@ -341,6 +351,94 @@ def separable_phase(device, card: str, build_s: float):
     } for variant in ("fuse", "fold")]
 
 
+def bwd_operands(shape, device):
+    """The inputs of the backward at ``shape``, batch 384, bf16, with the
+    cotangents and the prologue: ``(args, kw)`` for
+    ``separable_block_bwd``."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        separable_block_cotangents, separable_block_inputs,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+    t, cin, cout, stride, padding = shape
+    x, w_dw, w_pw, a, b = separable_block_inputs(t, cin, cout, batch=BATCH,
+                                                 device=device)
+    kw = dict(stride=stride, padding=padding)
+    y = S.separable_block_plain(x, w_dw, w_pw, a, b, **kw)[0]
+    dy, ds1, ds2 = separable_block_cotangents(y.shape[1], cout, batch=BATCH,
+                                              device=device)
+    return (x, y, dy, ds1, ds2, w_dw, w_pw, a, b), kw
+
+
+def gemm_yardstick(device):
+    """ms per shape of the backward's two pointwise products alone, dw^T
+    @ dyt and dyt @ w_pw^T, by ``torch.matmul`` (cuBLAS) on bf16 operands
+    computed beforehand with the plain version's arithmetic. What a
+    library gives for the GEMM part; the port never calls it."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES, time_calls,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+    out = []
+    for shape in SEPARABLE_SHAPES:
+        (x, y, dy, ds1, ds2, w_dw, w_pw, a, b), kw = bwd_operands(shape,
+                                                                  device)
+        t, cin, cout = shape[:3]
+        t_out, pad_lo = S.out_len(t, 3, kw["stride"], kw["padding"])
+        xin = torch.clamp(x * a.bfloat16() + b.bfloat16(), 0, 6)
+        dw = S._depthwise_fuse(xin, w_dw, kw["stride"], pad_lo,
+                               t_out).reshape(-1, cin)
+        dyt = (dy.float() + ds1 + 2 * y.float() * ds2).bfloat16() \
+            .reshape(-1, cout)
+        wpw = w_pw.reshape(cin, cout)
+        out.append(time_calls(lambda: (torch.matmul(dw.T, dyt),
+                                       torch.matmul(dyt, wpw.T)),
+                              SEPARABLE_ITERS, SEPARABLE_RUNS))
+    return out
+
+
+def profile_bwd(device) -> None:
+    """Device time of the backward's kernels by ``torch.profiler``, one
+    call per trunk shape after a warm-up call, summed over the shapes."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        SEPARABLE_SHAPES,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+    calls = [bwd_operands(shape, device) for shape in SEPARABLE_SHAPES]
+    for args, kw in calls:
+        S.separable_block_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for args, kw in calls:
+            S.separable_block_bwd(*args, **kw)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        found = re.search(r"\w+_kernel\b", e.key)
+        name = found.group(0) if found else e.key.split("(")[0].strip()
+        kernels[name] = kernels.get(name, 0.0) + us / 1e3
+    if not kernels:
+        log("[separable-bwd] profiler: no device time recorded")
+        return
+    busy = sum(kernels.values())
+    log(f"[separable-bwd] profiler, one bwd call per shape, device ms summed "
+        f"over the {len(calls)} shapes: busy {busy:.4f}; " + ", ".join(
+            f"{n} {ms:.4f} ({100 * ms / busy:.0f} %)" for n, ms in
+            sorted(kernels.items(), key=lambda kv: -kv[1])))
+
+
 def compare_bwd(got, want, dtype):
     """Per output of the backward (dx, dw_dw, dw_pw, da, db; da and db
     only with the prologue): (max abs err, max abs err relative to the
@@ -367,11 +465,13 @@ def compare_bwd(got, want, dtype):
     return errs
 
 
-def separable_bwd_phase(device, card: str, build_s: float):
+def separable_bwd_phase(device, card: str, build_s: float,
+                        ptxas: list[str]):
     """The separable block's backward: kernel against plain at the 11
     trunk shapes and two extra cases, the VJP against autograd of the
-    ATen block, then the forward+backward benchmark. Returns the
-    ``kernels`` entry."""
+    ATen block, then the forward+backward benchmark, each shape's time
+    against its bound, the cuBLAS yardstick and a profile of the
+    backward's kernels. Returns the ``kernels`` entry."""
     from speech_recognition_tpu_torch.export.benchmark import (
         SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES,
         benchmark_separable_block_grads, separable_block_cotangents,
@@ -388,6 +488,8 @@ def separable_bwd_phase(device, card: str, build_s: float):
         f"{SEP_BWD_SUM_RTOL[torch.float32]}, bf16 "
         f"{SEP_BWD_SUM_RTOL[torch.bfloat16]}; VJP against autograd "
         f"{VJP_GRAD_RTOL}")
+    for line in ptxas:
+        log(f"[separable-bwd] ptxas -v {line}")
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -515,7 +617,22 @@ def separable_bwd_phase(device, card: str, build_s: float):
     bound_ms, bound_by = separable_bounds(SEPARABLE_SHAPES, BATCH,
                                           backward=True)
     log(f"[separable-bwd] bound over the {len(records)} shapes: "
-        f"{bound_ms:.4f} ms ({bound_by})")
+        f"{bound_ms:.4f} ms ({bound_by}); bwd at "
+        f"{100 * bound_ms / totals['bwd']:.1f} % of it")
+    gemm_ms = gemm_yardstick(device)
+    for r, shape, lib_ms in zip(records, SEPARABLE_SHAPES, gemm_ms):
+        ms, by, nbytes, flops = separable_bound(shape, BATCH, backward=True)
+        label = (f"T={r['T']:3d} {r['Cin']}->{r['Cout']} s{r['stride']} "
+                 f"{r['padding']:5s}")
+        log(f"[separable-bwd] {label} bwd {r['bwd_ms']:.4f} ms, bound "
+            f"{ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP), share {100 * ms / r['bwd_ms']:.1f} % | {card}")
+        log(f"[separable-bwd] {label} yardstick, the two products alone in "
+            f"cuBLAS (torch.matmul on precomputed bf16 dw, dyt, w_pw): "
+            f"{lib_ms:.4f} ms | {card}")
+    log(f"[separable-bwd] yardstick total {sum(gemm_ms):.4f} ms; no single "
+        f"library call computes the backward, so library_ms is null")
+    profile_bwd(device)
     return {
         "name": "separable_block/bwd",
         "route": "cuda",
@@ -893,9 +1010,13 @@ def main() -> int:
         f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     # 2. build every kernel at once, one nvcc per source
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    from speech_recognition_tpu_torch.ops.kernels import build
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) \
+            as pool:
+        ptxas = pool.submit(build.ptxas_report, "separable_block_bwd")
         builds = dict(zip(KERNEL_SOURCES,
                           pool.map(timed_build, KERNEL_SOURCES)))
+        ptxas = ptxas.result()
     for lib, secs in builds.values():
         log(f"[build] {lib.name} in {secs:.2f} s")
 
@@ -957,7 +1078,7 @@ def main() -> int:
     separable_kernels = separable_phase(device, card,
                                         builds["separable_block"][1])
     separable_kernels.append(separable_bwd_phase(
-        device, card, builds["separable_block_bwd"][1]))
+        device, card, builds["separable_block_bwd"][1], ptxas))
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,

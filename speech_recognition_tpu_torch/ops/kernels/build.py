@@ -22,8 +22,10 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# code generation, then what makes a shared library of it
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3")
+NVCC_FLAGS = COMPILE_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -70,3 +72,37 @@ def build(name: str, nvcc: str | None = None) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def ptxas_report(name: str, nvcc: str | None = None) -> list[str]:
+    """``ptxas -v``'s account of ``csrc/<name>.cu``, one line per kernel:
+    its name, then registers, shared memory, stack and spills. Compiles
+    the source once more, to a cubin that is thrown away, with the
+    library's target and optimisation flags."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [nvcc or find_nvcc(), *COMPILE_FLAGS, "-cubin", "-Xptxas",
+               "-v", "-o", os.path.join(tmp, f"{name}.cubin"),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    names, lines = [], {}
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            names.append(line.split("'")[1])
+            lines[names[-1]] = []
+        elif names and ("spill" in line or "Used" in line):
+            lines[names[-1]].append(line.split(":", 1)[-1].strip())
+    demangled = _demangle(names)
+    return [f"{d}: " + "; ".join(lines[n]) for n, d in zip(names, demangled)]
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names through ``c++filt`` where there is one, else as they are."""
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt is None or not names:
+        return names
+    out = subprocess.run([cxxfilt], input="\n".join(names),
+                         capture_output=True, text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names

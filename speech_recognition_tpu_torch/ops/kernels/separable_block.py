@@ -41,6 +41,7 @@ from speech_recognition_tpu_torch.ops.kernels import build
 LAUNCHES = {"fuse": 0, "fold": 0, "bwd": 0}
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+MAX_BWD_TAPS = 8              # csrc/separable_block_bwd.cu: kMaxTaps
 _MAX_NUMEL = 2 ** 31 - 1      # the kernels' offsets are 32-bit
 
 
@@ -320,7 +321,8 @@ def separable_block_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
 
     dx is in x's dtype (bfloat16 or float32), the rest float32; da and db
     are None without the prologue. See ``separable_block_bwd_plain`` for
-    the arithmetic, which the kernel follows rounding for rounding.
+    the arithmetic, which the kernel follows rounding for rounding. The
+    kernel takes at most ``MAX_BWD_TAPS`` taps.
     """
     _check(x, w_dw, w_pw, a, b, stride, padding, grads=(y, dy, ds1, ds2))
     dy = dy.contiguous()       # autograd may pass strided or expanded ones
@@ -334,27 +336,33 @@ def separable_block_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     cdt = x.dtype
     batch, t, cin = x.shape
     k, cout = w_dw.shape[0], w_pw.shape[2]
+    if k > MAX_BWD_TAPS:
+        raise ValueError(f"the backward kernel takes at most {MAX_BWD_TAPS} "
+                         f"taps, got {k}")
     t_out, pad_lo = out_len(t, k, stride, padding)
-    wdw = w_dw.reshape(k, cin).to(cdt).contiguous()
-    wpw = w_pw.reshape(cin, cout).to(cdt).contiguous()
     if a is not None:
         a = a.float().contiguous()
         b = b.float().contiguous()
     # dy is read in the compute type or in f32, never rounded on the way
     if dy.dtype != cdt:
         dy = dy.float()
-    y = y.contiguous()
-    ds1 = ds1.float().contiguous()
-    ds2 = ds2.float().contiguous()
+    # the kernels read these 4 to 16 bytes at a time
+    x, wdw, wpw, y, dy, ds1, ds2 = (_aligned(v.contiguous()) for v in (
+        x, w_dw.reshape(k, cin).to(cdt), w_pw.reshape(cin, cout).to(cdt), y,
+        dy, ds1.float(), ds2.float()))
     dx = torch.empty_like(x)
-    ddw = torch.empty((batch * t_out, cin), dtype=cdt, device=x.device)
+    # the depthwise output and dyt, which the first kernel writes for the
+    # second (ddw itself stays on chip)
+    dw = torch.empty((batch * t_out, cin), dtype=cdt, device=x.device)
+    dyt = torch.empty((batch * t_out, cout), dtype=cdt, device=x.device)
     # dw_dw, dw_pw, da, db: f32 sums the kernels add into with atomics
     sums = torch.zeros(k * cin + cin * cout + 2 * cin, dtype=torch.float32,
                        device=x.device)
     _launch("separable_block_bwd", x, x.data_ptr(), _ptr(a), _ptr(b),
             wdw.data_ptr(), wpw.data_ptr(), y.data_ptr(), dy.data_ptr(),
             int(dy.dtype != cdt), ds1.data_ptr(), ds2.data_ptr(),
-            dx.data_ptr(), ddw.data_ptr(), sums.data_ptr(), batch, t, cin,
+            dx.data_ptr(), dw.data_ptr(), dyt.data_ptr(), sums.data_ptr(),
+            batch, t, cin,
             cout, k, stride, pad_lo, t_out)
     LAUNCHES["bwd"] += 1
     dw_dw, dw_pw, da, db = sums.split([k * cin, cin * cout, cin, cin])
@@ -403,6 +411,12 @@ def fused_separable_block_vjp(x: torch.Tensor, a: torch.Tensor,
     return SeparableBlockFunction.apply(x, a, b, w_dw, w_pw, stride, padding)
 
 
+def _aligned(v: torch.Tensor) -> torch.Tensor:
+    """``v``, or a copy of it if its data does not start on a 16-byte
+    boundary (a view at an offset)."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
     return None if v is None else v.data_ptr()
 
@@ -424,7 +438,7 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # the argument types of each source's bf16 and f32 entries
 _ENTRY_ARGS = {
     "separable_block": [_P] * 7 + [_I64] * 8 + [ctypes.c_int, _P],
-    "separable_block_bwd": [_P] * 7 + [ctypes.c_int] + [_P] * 5 + [_I64] * 8
+    "separable_block_bwd": [_P] * 7 + [ctypes.c_int] + [_P] * 6 + [_I64] * 8
     + [_P],
 }
 

@@ -312,3 +312,116 @@ def test_separable_vjp_on_card_matches_cpu(cuda, shape):
         assert g.device.type == "cuda" and g.shape == w.shape, name
         torch.testing.assert_close(g.cpu(), w, rtol=0,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+# shapes whose B * To rows are no multiple of the kernels' tiles, with Cin
+# and Cout no multiples of 16 (40, 56), of 8 (36, 44, 20, 28: the kernels'
+# element-by-element copies) or of 2 (19, 27: one channel at a time in the
+# epilogue): T - k odd at stride 2 VALID (the last input row gets dx = 0),
+# SAME at stride 2 with an asymmetric pad (T = 40: 0 before, 1 after) and
+# with a symmetric one (T = 37)
+RAGGED_SHAPES = [(37, 40, 56, 1, "VALID"), (37, 40, 56, 2, "SAME"),
+                 (40, 40, 56, 2, "SAME"), (38, 40, 56, 2, "VALID"),
+                 (37, 40, 56, 1, "SAME"), (37, 36, 44, 2, "SAME"),
+                 (38, 20, 28, 2, "VALID"), (37, 19, 27, 1, "VALID")]
+# (compute dtype, dy dtype): dy in f32 with bf16 compute is its own entry
+BWD_DTYPES = [(torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("prologue", [True, False])
+@pytest.mark.parametrize("dtypes", BWD_DTYPES)
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("batch", [3, 7])
+def test_separable_bwd_kernel_at_ragged_shapes(cuda, batch, shape, dtypes,
+                                               prologue):
+    dtype, dy_dtype = dtypes
+    args, kw = _bwd_inputs(cuda, batch, shape, dtype, prologue)
+    x, y, dy, ds1, ds2, w_dw, w_pw, a, b = args
+    args = (x, y, dy.to(dy_dtype), ds1, ds2, w_dw, w_pw, a, b)
+    got = S.separable_block_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, S.separable_block_bwd_plain(*args, **kw), dtype)
+    t, _, _, stride, padding = shape
+    if padding == "VALID" and stride == 2 and (t - 3) % 2:
+        assert (got[0][:, -1] == 0).all() and (got[0][:, -2] != 0).any()
+
+
+def test_separable_bwd_takes_inputs_at_unaligned_offsets(cuda):
+    """Views that start off a 16-byte boundary (the kernel reads some
+    inputs 16 bytes at a time) give the same result as fresh tensors."""
+    args, kw = _bwd_inputs(cuda, 3, (37, 40, 56, 2, "SAME"), torch.bfloat16)
+    x, y, dy, ds1, ds2, w_dw, w_pw, a, b = args
+
+    def shifted(v):
+        flat = torch.zeros(v.numel() + 1, dtype=v.dtype, device=cuda)
+        flat[1:] = v.reshape(-1)
+        return flat[1:].view(v.shape)
+
+    got = S.separable_block_bwd(x, *(shifted(v) for v in (y, dy, ds1, ds2)),
+                                w_dw, shifted(w_pw), a, b, **kw)
+    want = S.separable_block_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dw_dw", "dw_pw", "da", "db"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=SEP_BWD_SUM_RTOL[
+            torch.bfloat16] * float(w.float().abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_separable_bwd_mma_fragment_layout_16x16x16(cuda, dtype):
+    """Both products at 16 x 16 x 16 (16 output rows, Cin 16, Cout 16) on
+    small integers, where every value and every f32 sum is exact in
+    either order: a slip in the mma.sync fragment layout or in an
+    ldmatrix transpose moves some output, and the kernel must equal its
+    plain version bit for bit."""
+    g = np.random.default_rng(16)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(g.integers(lo, hi + 1, shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    x, w_dw, w_pw = ints(-3, 3, (1, 18, 16)), ints(-1, 1, (3, 1, 16)), \
+        ints(-2, 2, (1, 16, 16))
+    dy = ints(-3, 3, (1, 16, 16))
+    zeros = torch.zeros(16, device=cuda)
+    y = torch.zeros_like(dy)
+    args = (x, y, dy, zeros, zeros, w_dw, w_pw)
+    got = S.separable_block_bwd(*args, stride=1, padding="VALID")
+    torch.cuda.synchronize()
+    want = S.separable_block_bwd_plain(*args, stride=1, padding="VALID")
+    for name, gv, wv in zip(("dx", "dw_dw", "dw_pw"), got, want):
+        assert wv.abs().max() > 0, name
+        torch.testing.assert_close(gv, wv, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("k,stride,padding", [(5, 1, "SAME"), (5, 2, "VALID"),
+                                              (3, 3, "SAME"), (8, 2, "SAME")])
+def test_separable_bwd_general_build(cuda, k, stride, padding):
+    """Taps and strides other than the trunk's (k = 3 at stride 1 or 2)
+    take the kernel's general build; more than 8 taps are refused."""
+    g = np.random.default_rng(k * 10 + stride)
+    t, cin, cout, batch = 37, 40, 56, 7
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((g.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    x, w_dw, w_pw = rand(batch, t, cin), rand(k, 1, cin, scale=0.2), \
+        rand(1, cin, cout, scale=0.1)
+    a, b = rand(cin, scale=0.2) + 1.0, rand(cin, scale=0.1)
+    kw = dict(stride=stride, padding=padding)
+    for dtype in (torch.bfloat16, torch.float32):
+        xs, wd, wp = (v.to(dtype) for v in (x, w_dw, w_pw))
+        y = S.separable_block_plain(xs, wd, wp, a, b, **kw)[0]
+        dy, ds1, ds2 = separable_block_cotangents(y.shape[1], cout,
+                                                  batch=batch, dtype=dtype,
+                                                  device=cuda)
+        args = (xs, y, dy, ds1, ds2, wd, wp, a, b)
+        got = S.separable_block_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_bwd_close(got, S.separable_block_bwd_plain(*args, **kw), dtype)
+    y = torch.zeros(batch, t, cout, device=cuda)     # SAME, stride 1
+    with pytest.raises(ValueError, match="at most 8 taps"):
+        S.separable_block_bwd(x, y, y, ds1, ds2, rand(9, 1, cin), w_pw, a, b,
+                              stride=1, padding="SAME")

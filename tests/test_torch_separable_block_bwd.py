@@ -22,6 +22,9 @@ Tolerances, per output, against the largest |value| of the reference:
 - the float64 numpy loop: 1e-5, float32 against float64.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +35,7 @@ from speech_recognition_tpu.ops.pallas.experiments import (
     separable_kernel as J,
 )
 from speech_recognition_tpu_torch.export.benchmark import (
-    benchmark_separable_block_grads,
+    SEPARABLE_SHAPES, benchmark_separable_block_grads,
 )
 from speech_recognition_tpu_torch.ops.kernels import separable_block as K
 
@@ -45,6 +48,18 @@ CASES = [
     (21, 256, 320, 2, "SAME"),
     (11, 384, 512, 2, "SAME"),
     (9, 512, 512, 1, "VALID"),
+]
+# the card tests' ragged shapes (tests/test_torch_cuda.py): B * To no
+# multiple of the kernel's tiles, Cin and Cout no multiples of 16 or of 8,
+# SAME at stride 2 with an asymmetric pad (T = 40) and a symmetric one; no
+# VALID stride-2 shape with T - k odd, where the JAX backward raises
+RAGGED = [
+    (37, 40, 56, 1, "VALID"),
+    (37, 40, 56, 2, "SAME"),
+    (40, 40, 56, 2, "SAME"),
+    (37, 40, 56, 1, "SAME"),
+    (37, 40, 56, 2, "VALID"),
+    (37, 36, 44, 2, "SAME"),
 ]
 F32_RTOL = 1e-5
 BF16_DX_RTOL, BF16_DX_ATOL = 2.0 ** -6, 2.0 ** -8
@@ -86,11 +101,11 @@ def _close(got, want, of_max, name, rtol=0.0):
                                atol=of_max * np.abs(want).max(), err_msg=name)
 
 
-def _bwd_both(t, cin, cout, s, pad, dtype, prologue=True, seed=0):
+def _bwd_both(t, cin, cout, s, pad, dtype, prologue=True, seed=0, batch=4):
     """(port, JAX) backward of one case on identical inputs; y is the
     port's rounded forward output, handed to both."""
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
-    x, w_dw, w_pw, a, b = _inputs(t, cin, cout, seed=seed)
+    x, w_dw, w_pw, a, b = _inputs(t, cin, cout, batch=batch, seed=seed)
     t_out, _ = K.out_len(t, 3, s, pad)
     dy, ds1, ds2 = _cotangents(x.shape[0], t_out, cout)
     tx = torch.from_numpy(x).to(dtype)
@@ -132,6 +147,59 @@ def test_plain_bwd_matches_pallas_kernel_bf16(t, cin, cout, s, pad):
     for name, g, w in zip(NAMES[1:], got[1:], want[1:]):
         assert g.dtype == torch.float32
         _close(g, w, BF16_SUM_RTOL, name)
+
+
+@pytest.mark.parametrize("t,cin,cout,s,pad", RAGGED)
+@pytest.mark.parametrize("prologue", [True, False])
+def test_plain_bwd_matches_pallas_kernel_at_ragged_shapes_f32(t, cin, cout, s,
+                                                              pad, prologue):
+    got, want = _bwd_both(t, cin, cout, s, pad, torch.float32, prologue,
+                          batch=7)
+    for name, g, w in zip(NAMES, got, want):
+        if name in ("da", "db") and not prologue:
+            assert g is None
+            continue
+        _close(g, w, F32_RTOL, name)
+
+
+@pytest.mark.parametrize("t,cin,cout,s,pad", [RAGGED[1], RAGGED[2],
+                                              RAGGED[5]])
+def test_plain_bwd_matches_pallas_kernel_at_ragged_shapes_bf16(t, cin, cout,
+                                                               s, pad):
+    got, want = _bwd_both(t, cin, cout, s, pad, torch.bfloat16, batch=3)
+    _close(got[0], want[0], BF16_DX_ATOL, "dx", rtol=BF16_DX_RTOL)
+    for name, g, w in zip(NAMES[1:], got[1:], want[1:]):
+        _close(g, w, BF16_SUM_RTOL, name)
+
+
+def test_chip_smoke_bounds_per_trunk_shape():
+    """``chip_smoke.separable_bound`` at batch 384 gives the backward's
+    bytes, FLOP and bound of each trunk shape (3.35 TB/s, 989 TFLOP/s
+    bf16: every shape bound by bytes), and ``separable_bounds`` their sum,
+    0.2394 ms. Computed from shapes alone, on the CPU."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    # (MB, GFLOP of the two products, bound ms) per trunk shape
+    want = [(156.6, 9.99, 0.0467), (136.9, 7.51, 0.0409),
+            (117.0, 11.15, 0.0349), (97.3, 7.47, 0.0291),
+            (77.5, 9.76, 0.0231), (62.7, 6.17, 0.0187),
+            (47.8, 7.39, 0.0143), (38.0, 4.53, 0.0113),
+            (28.0, 4.98, 0.0084), (22.8, 3.32, 0.0068),
+            (17.3, 3.62, 0.0052)]
+    for shape, (mb, gflop, ms) in zip(SEPARABLE_SHAPES, want):
+        t, cin, cout, stride, padding = shape
+        got_ms, by, nbytes, flops = smoke.separable_bound(shape, 384,
+                                                          backward=True)
+        to = K.out_len(t, 3, stride, padding)[0]
+        assert by == "bytes", shape
+        assert round(nbytes / 1e6, 1) == mb, shape
+        assert round(4 * 384 * to * cin * cout / 1e9, 2) == gflop, shape
+        assert flops > 4 * 384 * to * cin * cout, shape
+        assert round(got_ms, 4) == ms, shape
+    total, by = smoke.separable_bounds(SEPARABLE_SHAPES, 384, backward=True)
+    assert round(total, 4) == 0.2394 and by == "bytes"
 
 
 def _torch_grads(fn, x, a, b, w_dw, w_pw, dy, ds1, ds2):
