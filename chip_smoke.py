@@ -15,7 +15,11 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   its ``fuse`` and ``fold`` variants, against its plain version at the
   flagship's 11 trunk shapes at batch 384 in bf16 and f32, then runs the
   block benchmark (``benchmark_separable_blocks``) and checks that it
-  launched both variants;
+  launched both variants; prints each shape's ``fuse`` and ``fold`` time
+  against its bound, the time of the pointwise product alone in cuBLAS
+  (a yardstick the port never calls), a ``torch.profiler`` account of
+  the forward's kernels and ``ptxas -v``'s registers, shared memory and
+  spills for each build;
 - separable block backward (``[separable-bwd]``): holds the backward
   kernel against its plain version at the same shapes and dtypes, and
   without the prologue and at a VALID stride-2 shape with T - k odd;
@@ -25,8 +29,10 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   backward and ``fold`` kernels as often as it called them; prints each
   shape's backward time against its bound, the time of the backward's
   two products alone in cuBLAS (a yardstick the port never calls), a
-  ``torch.profiler`` account of the backward's kernels and ``ptxas -v``'s
-  registers, shared memory and spills for each of them;
+  ``torch.profiler`` account of the backward's kernels and of a
+  ``vjp_grad`` call's, ``vjp_grad``'s host time split into autograd's
+  own, the forward's and the backward wrapper's, and ``ptxas -v``'s
+  registers, shared memory and spills for each kernel;
 - data-parallel training (``[dp]``): two ranks, spawned processes joined
   by NCCL when each has a card of its own and by gloo when they share
   one. Each rank builds and replicates the full-corpus bank, holds
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import functools
 import hashlib
 import json
 import re
@@ -55,6 +62,7 @@ import socket
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -226,9 +234,12 @@ def compare_block(got, want, dtype):
     return float(d.max()), bad, e1, e2
 
 
-def separable_phase(device, card: str, build_s: float):
+def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
     """The separable block: kernel against plain at the 11 trunk shapes,
-    two extra cases, then the benchmark. Returns the ``kernels`` entries."""
+    two extra cases, then the benchmark, each shape's time against its
+    bound and the cuBLAS yardstick (``profile_separable`` profiles the
+    forward's kernels after the backward's phase). Returns the
+    ``kernels`` entries."""
     from speech_recognition_tpu_torch.export.benchmark import (
         SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES,
         benchmark_separable_blocks, separable_block_inputs,
@@ -241,6 +252,8 @@ def separable_phase(device, card: str, build_s: float):
     log(f"[separable] library built in {build_s:.2f} s | tolerances: y "
         f"bf16 rtol 2^-7 atol 1e-5, f32 atol 1e-4 (TF32 off); s1, s2 "
         f"relative {SEP_STATS_RTOL}")
+    for line in ptxas:
+        log(f"[separable] ptxas -v {line}")
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -334,7 +347,23 @@ def separable_phase(device, card: str, build_s: float):
     bound_ms, bound_by = separable_bounds(SEPARABLE_SHAPES, BATCH,
                                           backward=False)
     log(f"[separable] bound over the {len(records)} shapes: "
-        f"{bound_ms:.4f} ms ({bound_by})")
+        f"{bound_ms:.4f} ms ({bound_by}); fuse at "
+        f"{100 * bound_ms / totals['fuse']:.1f} %, fold at "
+        f"{100 * bound_ms / totals['fold']:.1f} % of it")
+    gemm_ms = gemm_yardstick(device, backward=False)
+    for r, shape, lib_ms in zip(records, SEPARABLE_SHAPES, gemm_ms):
+        ms, by, nbytes, flops = separable_bound(shape, BATCH, backward=False)
+        label = (f"T={r['T']:3d} {r['Cin']}->{r['Cout']} s{r['stride']} "
+                 f"{r['padding']:5s}")
+        log(f"[separable] {label} bound {ms:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); fuse "
+            f"{r['fuse_ms']:.4f} ms, share {100 * ms / r['fuse_ms']:.1f} %; "
+            f"fold {r['fold_ms']:.4f} ms, share "
+            f"{100 * ms / r['fold_ms']:.1f} %; plain {r['plain_ms']:.4f} ms; "
+            f"yardstick, the pointwise product alone in cuBLAS (torch.matmul "
+            f"of a precomputed bf16 dw by w_pw) {lib_ms:.4f} ms | {card}")
+    log(f"[separable] yardstick total {sum(gemm_ms):.4f} ms; no single "
+        f"library call computes the block, so library_ms is null")
     return [{
         "name": f"separable_block/{variant}",
         "route": "cuda",
@@ -371,11 +400,23 @@ def bwd_operands(shape, device):
     return (x, y, dy, ds1, ds2, w_dw, w_pw, a, b), kw
 
 
-def gemm_yardstick(device):
-    """ms per shape of the backward's two pointwise products alone, dw^T
-    @ dyt and dyt @ w_pw^T, by ``torch.matmul`` (cuBLAS) on bf16 operands
-    computed beforehand with the plain version's arithmetic. What a
-    library gives for the GEMM part; the port never calls it."""
+def fwd_operands(shape, device):
+    """The forward's inputs at ``shape``, batch 384, bf16, with the
+    prologue: ``(args, kw)`` for ``fused_separable_block``."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        separable_block_inputs,
+    )
+    t, cin, cout, stride, padding = shape
+    return (separable_block_inputs(t, cin, cout, batch=BATCH, device=device),
+            dict(stride=stride, padding=padding))
+
+
+def gemm_yardstick(device, backward: bool):
+    """ms per shape of the block's pointwise products alone by
+    ``torch.matmul`` (cuBLAS) on bf16 operands computed beforehand with
+    the plain version's arithmetic: forward dw @ w_pw; backward dw^T @
+    dyt and dyt @ w_pw^T. What a library gives for the GEMM part; the
+    port never calls it."""
     from speech_recognition_tpu_torch.export.benchmark import (
         SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES, time_calls,
     )
@@ -391,52 +432,194 @@ def gemm_yardstick(device):
         xin = torch.clamp(x * a.bfloat16() + b.bfloat16(), 0, 6)
         dw = S._depthwise_fuse(xin, w_dw, kw["stride"], pad_lo,
                                t_out).reshape(-1, cin)
-        dyt = (dy.float() + ds1 + 2 * y.float() * ds2).bfloat16() \
-            .reshape(-1, cout)
         wpw = w_pw.reshape(cin, cout)
-        out.append(time_calls(lambda: (torch.matmul(dw.T, dyt),
-                                       torch.matmul(dyt, wpw.T)),
-                              SEPARABLE_ITERS, SEPARABLE_RUNS))
+        if backward:
+            dyt = (dy.float() + ds1 + 2 * y.float() * ds2).bfloat16() \
+                .reshape(-1, cout)
+            out.append(time_calls(lambda: (torch.matmul(dw.T, dyt),
+                                           torch.matmul(dyt, wpw.T)),
+                                  SEPARABLE_ITERS, SEPARABLE_RUNS))
+        else:
+            out.append(time_calls(lambda: torch.matmul(dw, wpw),
+                                  SEPARABLE_ITERS, SEPARABLE_RUNS))
     return out
 
 
-def profile_bwd(device) -> None:
-    """Device time of the backward's kernels by ``torch.profiler``, one
-    call per trunk shape after a warm-up call, summed over the shapes."""
+def profile_kernels(groups) -> None:
+    """Device time by kernel by ``torch.profiler``, in one session for
+    every ``(tag, what, calls)`` group: the calls (one per trunk shape,
+    each after a warm-up call) run inside a ``record_function`` range of
+    their group that ends in a synchronize, so each kernel counts for the
+    group whose range holds its start (kernels launched through ctypes
+    are linked to no torch op, so the profiler's own attribution misses
+    them). Logs per group the sums over its calls."""
+    for _, _, calls in groups:
+        for fn in calls:
+            fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    label = "profiled group "
+    with torch.profiler.profile(activities=acts) as prof:
+        for i, (_, _, calls) in enumerate(groups):
+            with torch.profiler.record_function(f"{label}{i}"):
+                for fn in calls:
+                    fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {int(e.name[len(label):]): e.time_range for e in prof.events()
+              if e.device_type != cuda and e.name.startswith(label)}
+    sums = [{} for _ in groups]
+    for e in prof.events():
+        if e.device_type != cuda or e.is_user_annotation \
+                or e.name.startswith(label):
+            continue
+        i = next((i for i, r in ranges.items()
+                  if r.start <= e.time_range.start <= r.end), None)
+        if i is None:
+            continue
+        found = re.search(r"\w+_kernel\b", e.name)
+        name = found.group(0) if found else e.name.split("(")[0].strip()
+        sums[i][name] = sums[i].get(name, 0.0) \
+            + (e.time_range.end - e.time_range.start) / 1e3
+    for (tag, what, calls), kernels in zip(groups, sums):
+        if not kernels:
+            log(f"{tag} profiler, {what}: no device time recorded")
+            continue
+        busy = sum(kernels.values())
+        log(f"{tag} profiler, {what}, device ms summed over the {len(calls)} "
+            f"shapes: busy {busy:.4f}; " + ", ".join(
+                f"{n} {ms:.4f} ({100 * ms / busy:.0f} %)" for n, ms in
+                sorted(kernels.items(), key=lambda kv: -kv[1])))
+
+
+def vjp_grad_call(shape, device):
+    """One ``vjp_grad`` call of the gradient benchmark at ``shape`` as a
+    callable: autograd.grad through ``fused_separable_block_vjp`` to its
+    five leaves (bf16 x, w_dw, w_pw; f32 a, b). Returns ``(call, leaves,
+    cotangents, kw)``."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+    (x, _, dy, ds1, ds2, w_dw, w_pw, a, b), kw = bwd_operands(shape, device)
+    leaves = [v.detach().requires_grad_() for v in (x, a, b, w_dw, w_pw)]
+    cts = (dy, ds1, ds2)
+    return (lambda: torch.autograd.grad(S.fused_separable_block_vjp(
+        *leaves, kw["stride"], kw["padding"]), leaves, cts),
+        leaves, cts, kw)
+
+
+def profile_separable(device) -> None:
+    """The profiler's account of the separable block's kernels: one
+    ``fuse``, one ``fold``, one backward and one ``vjp_grad`` call per
+    trunk shape."""
     from speech_recognition_tpu_torch.export.benchmark import (
         SEPARABLE_SHAPES,
     )
     from speech_recognition_tpu_torch.ops.kernels import (
         separable_block as S,
     )
-    calls = [bwd_operands(shape, device) for shape in SEPARABLE_SHAPES]
-    for args, kw in calls:
-        S.separable_block_bwd(*args, **kw)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for args, kw in calls:
-            S.separable_block_bwd(*args, **kw)
+    devices = [device] * len(SEPARABLE_SHAPES)
+    fwd = list(map(fwd_operands, SEPARABLE_SHAPES, devices))
+    profile_kernels([
+        ("[separable]", f"one {variant} call per shape", [
+            functools.partial(S.fused_separable_block, *ins,
+                              fold_weights=variant == "fold", **kw)
+            for ins, kw in fwd])
+        for variant in ("fuse", "fold")] + [
+        ("[separable-bwd]", "one bwd call per shape", [
+            functools.partial(S.separable_block_bwd, *args, **kw)
+            for args, kw in map(bwd_operands, SEPARABLE_SHAPES, devices)]),
+        ("[separable-bwd]", "one vjp_grad call per shape", [
+            vjp_grad_call(shape, device)[0] for shape in SEPARABLE_SHAPES])])
+
+
+class _NoLaunch(torch.autograd.Function):
+    """The VJP's leaves and outputs with nothing launched: ``apply(x, a, b,
+    w_dw, w_pw, zeros, outs)`` returns empty tensors like ``outs`` and
+    takes ``zeros`` as the leaves' gradients. What autograd costs alone."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w_dw, w_pw, zeros, outs):
+        ctx.zeros = zeros
+        return tuple(torch.empty_like(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (*ctx.zeros, None, None)
+
+
+def vjp_host_account(device, card: str) -> None:
+    """Where ``vjp_grad``'s time goes when the host sets its pace: ms per
+    call on the host clock, summed over the 11 trunk shapes, of
+    autograd.grad through a Function that launches nothing (autograd's
+    own cost, with the VJP's leaves and outputs), of the forward alone
+    (``fused_separable_block_vjp``, recording the graph), of the backward
+    wrapper alone, of ``SeparableBlockFunction.backward`` called on this
+    thread, of autograd.grad through the real forward whose backward
+    returns gradients made beforehand, and of the whole ``vjp_grad``
+    call. Each is the best of 3 runs of 20 calls after one call, with no
+    synchronize inside a run, so it is host time: the card's queue never
+    fills."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        SEPARABLE_ITERS, SEPARABLE_RUNS, SEPARABLE_SHAPES,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+
+    def host_ms(fn):
+        fn()
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        found = re.search(r"\w+_kernel\b", e.key)
-        name = found.group(0) if found else e.key.split("(")[0].strip()
-        kernels[name] = kernels.get(name, 0.0) + us / 1e3
-    if not kernels:
-        log("[separable-bwd] profiler: no device time recorded")
-        return
-    busy = sum(kernels.values())
-    log(f"[separable-bwd] profiler, one bwd call per shape, device ms summed "
-        f"over the {len(calls)} shapes: busy {busy:.4f}; " + ", ".join(
-            f"{n} {ms:.4f} ({100 * ms / busy:.0f} %)" for n, ms in
-            sorted(kernels.items(), key=lambda kv: -kv[1])))
+        best = float("inf")
+        for _ in range(SEPARABLE_RUNS):
+            t0 = time.perf_counter()
+            for _ in range(SEPARABLE_ITERS):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / SEPARABLE_ITERS)
+            torch.cuda.synchronize()
+        return 1e3 * best
+
+    class ForwardOnly(S.SeparableBlockFunction):
+        """The VJP's forward; its backward returns ``grads``."""
+        grads = None
+
+        @staticmethod
+        def backward(ctx, *cts):
+            return ForwardOnly.grads
+
+    parts = {"autograd.grad through a Function that launches nothing": 0.0,
+             "the forward (fused_separable_block_vjp)": 0.0,
+             "the backward wrapper (separable_block_bwd)": 0.0,
+             "SeparableBlockFunction.backward on the calling thread": 0.0,
+             "autograd.grad through the forward with a backward that "
+             "launches nothing": 0.0,
+             "the whole vjp_grad call": 0.0}
+    names = list(parts)
+    for shape in SEPARABLE_SHAPES:
+        call, leaves, cts, kw = vjp_grad_call(shape, device)
+        x, a, b, w_dw, w_pw = leaves
+        y, s1, s2 = (v.detach() for v in S.fused_separable_block(
+            x, w_dw, w_pw, a, b, **kw))
+        zeros = tuple(torch.zeros_like(v) for v in leaves)
+        ForwardOnly.grads = (*zeros, None, None)
+        args = [v.detach() for v in (x, y, *cts, w_dw, w_pw, a, b)]
+        ctx = types.SimpleNamespace(
+            saved_tensors=(*(v.detach() for v in leaves), y), conv=kw)
+        fns = (lambda: torch.autograd.grad(_NoLaunch.apply(
+                   *leaves, zeros, (y, s1, s2)), leaves, cts),
+               lambda: S.fused_separable_block_vjp(*leaves, kw["stride"],
+                                                   kw["padding"]),
+               lambda: S.separable_block_bwd(*args, **kw),
+               lambda: S.SeparableBlockFunction.backward(ctx, *cts),
+               lambda: torch.autograd.grad(ForwardOnly.apply(
+                   *leaves, kw["stride"], kw["padding"]), leaves, cts),
+               call)
+        for name, fn in zip(names, fns):
+            parts[name] += host_ms(fn)
+    log(f"[separable-bwd] vjp_grad on the host clock, ms per call summed "
+        f"over the {len(SEPARABLE_SHAPES)} shapes: " + ", ".join(
+            f"{n} {ms:.4f}" for n, ms in parts.items()) + f" | {card}")
 
 
 def compare_bwd(got, want, dtype):
@@ -619,7 +802,7 @@ def separable_bwd_phase(device, card: str, build_s: float,
     log(f"[separable-bwd] bound over the {len(records)} shapes: "
         f"{bound_ms:.4f} ms ({bound_by}); bwd at "
         f"{100 * bound_ms / totals['bwd']:.1f} % of it")
-    gemm_ms = gemm_yardstick(device)
+    gemm_ms = gemm_yardstick(device, backward=True)
     for r, shape, lib_ms in zip(records, SEPARABLE_SHAPES, gemm_ms):
         ms, by, nbytes, flops = separable_bound(shape, BATCH, backward=True)
         label = (f"T={r['T']:3d} {r['Cin']}->{r['Cout']} s{r['stride']} "
@@ -632,7 +815,6 @@ def separable_bwd_phase(device, card: str, build_s: float,
             f"{lib_ms:.4f} ms | {card}")
     log(f"[separable-bwd] yardstick total {sum(gemm_ms):.4f} ms; no single "
         f"library call computes the backward, so library_ms is null")
-    profile_bwd(device)
     return {
         "name": "separable_block/bwd",
         "route": "cuda",
@@ -1011,12 +1193,13 @@ def main() -> int:
 
     # 2. build every kernel at once, one nvcc per source
     from speech_recognition_tpu_torch.ops.kernels import build
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) \
-            as pool:
-        ptxas = pool.submit(build.ptxas_report, "separable_block_bwd")
+    reported = ("separable_block", "separable_block_bwd")
+    with concurrent.futures.ThreadPoolExecutor(
+            len(KERNEL_SOURCES) + len(reported)) as pool:
+        ptxas = {n: pool.submit(build.ptxas_report, n) for n in reported}
         builds = dict(zip(KERNEL_SOURCES,
                           pool.map(timed_build, KERNEL_SOURCES)))
-        ptxas = ptxas.result()
+        ptxas = {n: f.result() for n, f in ptxas.items()}
     for lib, secs in builds.values():
         log(f"[build] {lib.name} in {secs:.2f} s")
 
@@ -1076,9 +1259,13 @@ def main() -> int:
 
     # 4. the separable block: kernel against plain, then its benchmark
     separable_kernels = separable_phase(device, card,
-                                        builds["separable_block"][1])
+                                        builds["separable_block"][1],
+                                        ptxas["separable_block"])
     separable_kernels.append(separable_bwd_phase(
-        device, card, builds["separable_block_bwd"][1], ptxas))
+        device, card, builds["separable_block_bwd"][1],
+        ptxas["separable_block_bwd"]))
+    profile_separable(device)
+    vjp_host_account(device, card)
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` straight into ``speech_recognition_tpu_torch/_build/``
 (not tracked by git); its wrapper loads it with ``ctypes``. The library's file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. No PyTorch header is
+carries a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. No PyTorch header is
 included: a build takes seconds where ``torch.utils.cpp_extension``
 takes minutes.
 """
@@ -41,10 +42,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives for its current source."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the build of ``csrc/<name>.cu`` lives for its current source
+    and the current ``csrc/*.cuh`` headers (any of which it may include)."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, nvcc: str | None = None) -> Path:

@@ -41,6 +41,7 @@ from speech_recognition_tpu_torch.ops.kernels import build
 LAUNCHES = {"fuse": 0, "fold": 0, "bwd": 0}
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+MAX_FWD_TAPS = 1024           # csrc/separable_block.cu: kMaxTaps
 MAX_BWD_TAPS = 8              # csrc/separable_block_bwd.cu: kMaxTaps
 _MAX_NUMEL = 2 ** 31 - 1      # the kernels' offsets are 32-bit
 
@@ -71,6 +72,11 @@ def fold_weights_of(w_dw: torch.Tensor, w_pw: torch.Tensor,
     """``W_i = diag(w_dw[i]) @ w_pw``: [k, Cin, Cout], products in f32,
     rounded once to ``dtype``."""
     k, _, cin = w_dw.shape
+    if w_dw.dtype == w_pw.dtype == dtype:
+        # one elementwise op: PyTorch multiplies in f32 (or dtype, if
+        # wider) and rounds once to dtype, and a product of two bf16
+        # values is exact in f32, so this is the same rounding
+        return w_dw.reshape(k, cin, 1) * w_pw.reshape(1, cin, -1)
     acc = _acc(dtype)
     return (w_dw.reshape(k, cin, 1).to(acc)
             * w_pw.reshape(1, cin, -1).to(acc)).to(dtype)
@@ -275,7 +281,8 @@ def fused_separable_block(x: torch.Tensor, w_dw: torch.Tensor,
     Without ``a`` and ``b`` the prologue is the identity. ``fold_weights``
     runs the taps as k products with ``W_i = diag(w_dw[i]) @ w_pw``
     (never rounding the depthwise intermediate); otherwise the depthwise
-    sum is rounded to x's dtype tap by tap, then multiplied by w_pw.
+    sum is rounded to x's dtype tap by tap, then multiplied by w_pw. The
+    kernel takes at most ``MAX_FWD_TAPS`` taps.
     """
     _check(x, w_dw, w_pw, a, b, stride, padding)
     kw = dict(stride=stride, padding=padding, emit_stats=emit_stats,
@@ -288,17 +295,23 @@ def fused_separable_block(x: torch.Tensor, w_dw: torch.Tensor,
     cdt = x.dtype
     batch, t, cin = x.shape
     k, cout = w_dw.shape[0], w_pw.shape[2]
+    if k > MAX_FWD_TAPS:
+        raise ValueError(f"the forward kernel takes at most {MAX_FWD_TAPS} "
+                         f"taps, got {k}")
     t_out, pad_lo = out_len(t, k, stride, padding)
     # the weights in the compute dtype, built outside the kernel as JAX
-    # builds them outside its pallas_call
-    wdw = w_dw.reshape(k, cin).to(cdt).contiguous()
-    w = (fold_weights_of(w_dw, w_pw, cdt) if fold_weights
-         else w_pw.reshape(cin, cout).to(cdt)).contiguous()
+    # builds them outside its pallas_call; the kernel reads x, the weights
+    # and y 4 to 16 bytes at a time
+    x = _aligned(x)
+    wdw = _aligned(w_dw.reshape(k, cin).to(cdt).contiguous())
+    w = _aligned((fold_weights_of(w_dw, w_pw, cdt) if fold_weights
+                  else w_pw.reshape(cin, cout).to(cdt)).contiguous())
     if a is not None:
         a = a.float().contiguous()
         b = b.float().contiguous()
     y = torch.empty((batch, t_out, cout), dtype=cdt, device=x.device)
-    stats = (torch.zeros((2, cout), dtype=torch.float32, device=x.device)
+    # the kernel's entry zeroes the statistics before it adds into them
+    stats = (torch.empty((2, cout), dtype=torch.float32, device=x.device)
              if emit_stats else None)
     _launch("separable_block", x, x.data_ptr(), _ptr(a), _ptr(b),
             wdw.data_ptr(), w.data_ptr(), y.data_ptr(), _ptr(stats), batch,
@@ -391,10 +404,12 @@ class SeparableBlockFunction(torch.autograd.Function):
         x, a, b, w_dw, w_pw, y = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(y)
-        zeros = y.new_zeros(y.shape[2], dtype=torch.float32)
+        if ds1 is None or ds2 is None:
+            zeros = y.new_zeros(y.shape[2], dtype=torch.float32)
+            ds1 = zeros if ds1 is None else ds1
+            ds2 = zeros if ds2 is None else ds2
         dx, dw_dw, dw_pw, da, db = separable_block_bwd(
-            x, y, dy, zeros if ds1 is None else ds1,
-            zeros if ds2 is None else ds2, w_dw, w_pw, a, b, **ctx.conv)
+            x, y, dy, ds1, ds2, w_dw, w_pw, a, b, **ctx.conv)
         return (dx, da.to(a.dtype), db.to(b.dtype),
                 dw_dw.reshape(w_dw.shape).to(w_dw.dtype),
                 dw_pw.reshape(w_pw.shape).to(w_pw.dtype), None, None)

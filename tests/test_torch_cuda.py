@@ -205,6 +205,17 @@ def test_separable_same_padding_comes_after_the_prologue(cuda):
             x, w_dw, w_pw, a, b, **kw), torch.float32)
 
 
+def _assert_block_own_stats(got, want, dtype):
+    """y as in ``_assert_block_close``; s1 and s2 against the f32 sums of
+    the kernel's own rounded y and y * y, which is what they are. At a few
+    hundred rows one y that rounds to the neighbouring bf16 value (a
+    different f32 sum order) moves s2 by more than SEP_STATS_RTOL of the
+    plain version's s2, so the sums are held to the kernel's own y."""
+    y = got[0]
+    y_sums = (want[0], y.float().sum((0, 1)), (y * y).float().sum((0, 1)))
+    _assert_block_close(got, y_sums, dtype)
+
+
 def test_separable_wrapper_rejects_non_contiguous_x(cuda):
     x, w_dw, w_pw, a, b = _sep_inputs(cuda, 3, SEP_SHAPES[0],
                                       torch.bfloat16)
@@ -425,3 +436,118 @@ def test_separable_bwd_general_build(cuda, k, stride, padding):
     with pytest.raises(ValueError, match="at most 8 taps"):
         S.separable_block_bwd(x, y, y, ds1, ds2, rand(9, 1, cin), w_pw, a, b,
                               stride=1, padding="SAME")
+
+
+# the forward kernel at the same ragged shapes: the x tile's element-by-
+# element copies (Cin no multiple of 8 in bf16, of 4 in f32), odd channel
+# counts in the fuse chain, y written element by element (Cout no multiple
+# of 8 or 4), tiles of 128 rows that cross batch rows
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("prologue", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("batch", [3, 7])
+def test_separable_kernel_at_ragged_shapes(cuda, batch, shape, dtype,
+                                           prologue, fold):
+    x, w_dw, w_pw, a, b = _sep_inputs(cuda, batch, shape, dtype)
+    if not prologue:
+        a = b = None
+    kw = dict(stride=shape[3], padding=shape[4], fold_weights=fold)
+    got = S.fused_separable_block(x, w_dw, w_pw, a, b, **kw)
+    torch.cuda.synchronize()
+    _assert_block_own_stats(got, S.separable_block_plain(
+        x, w_dw, w_pw, a, b, **kw), dtype)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_separable_kernel_odd_valid_stride2_shape(cuda, dtype, fold):
+    """T - k odd at stride 2, VALID: the last input row feeds no output."""
+    ins = _sep_inputs(cuda, 7, (398, 128, 192, 2, "VALID"), dtype)
+    kw = dict(stride=2, padding="VALID", fold_weights=fold)
+    got = S.fused_separable_block(*ins, **kw)
+    torch.cuda.synchronize()
+    _assert_block_own_stats(got, S.separable_block_plain(*ins, **kw), dtype)
+
+
+@pytest.mark.parametrize("k,stride,padding", [
+    (5, 1, "SAME"), (5, 2, "VALID"), (3, 3, "SAME"), (8, 2, "SAME"),
+    (1, 1, "VALID"), (200, 1, "SAME")])
+def test_separable_kernel_general_build(cuda, k, stride, padding):
+    """Taps other than the trunk's k = 3 take the general build, and k = 3
+    at stride 3 the k = 3 build with rows that share no tap. At k = 200 the
+    x tile of 128 rows does not fit in shared memory, and the launch takes
+    a smaller row tile; more than 1024 taps are refused."""
+    g = np.random.default_rng(k * 10 + stride)
+    t, cin, cout, batch = 37, 40, 56, 7
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((g.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    x, w_dw, w_pw = rand(batch, t, cin), rand(k, 1, cin, scale=0.2), \
+        rand(1, cin, cout, scale=0.1)
+    a, b = rand(cin, scale=0.2) + 1.0, rand(cin, scale=0.1)
+    for dtype in (torch.bfloat16, torch.float32):
+        xs, wd, wp = (v.to(dtype) for v in (x, w_dw, w_pw))
+        for fold in (False, True):
+            kw = dict(stride=stride, padding=padding, fold_weights=fold)
+            got = S.fused_separable_block(xs, wd, wp, a, b, **kw)
+            torch.cuda.synchronize()
+            _assert_block_own_stats(got, S.separable_block_plain(
+                xs, wd, wp, a, b, **kw), dtype)
+    with pytest.raises(ValueError, match="at most 1024 taps"):
+        S.fused_separable_block(x, rand(1025, 1, cin), w_pw, a, b,
+                                stride=1, padding="SAME")
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_separable_kernel_takes_inputs_at_unaligned_offsets(cuda, fold):
+    """Views that start off a 16-byte boundary (the kernel reads x and the
+    weights 16 bytes at a time) give the same y as fresh tensors."""
+    x, w_dw, w_pw, a, b = _sep_inputs(cuda, 3, (37, 40, 56, 2, "SAME"),
+                                      torch.bfloat16)
+
+    def shifted(v):
+        flat = torch.zeros(v.numel() + 1, dtype=v.dtype, device=cuda)
+        flat[1:] = v.reshape(-1)
+        return flat[1:].view(v.shape)
+
+    kw = dict(stride=2, padding="SAME", fold_weights=fold)
+    got = S.fused_separable_block(shifted(x), shifted(w_dw), shifted(w_pw),
+                                  a, b, **kw)
+    want = S.fused_separable_block(x, w_dw, w_pw, a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    _assert_block_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("batch", [1, 9])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_separable_mma_fragment_layout_16x16x16(cuda, dtype, batch, stride,
+                                                fold):
+    """16 output rows per batch row, Cin 16, Cout 16, on small integers,
+    where every value, product and f32 sum is exact in any order: a slip
+    in the gathered ldmatrix row addresses (``fold``: tap i of row r is
+    slot row_slot[r] + i), in the mma.sync fragment layout or in the slot
+    table moves some output, and y, s1 and s2 must equal the plain
+    version bit for bit. Batch 9 makes 144 rows: two tiles, each crossing
+    batch rows."""
+    g = np.random.default_rng(16 + stride)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(g.integers(lo, hi + 1, shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    x = ints(-3, 3, (batch, 15 * stride + 3, 16))
+    w_dw, w_pw = ints(-1, 1, (3, 1, 16)), ints(-2, 2, (1, 16, 16))
+    a, b = ints(1, 2, (16,)).float(), ints(-1, 1, (16,)).float()
+    kw = dict(stride=stride, padding="VALID", fold_weights=fold)
+    got = S.fused_separable_block(x, w_dw, w_pw, a, b, **kw)
+    torch.cuda.synchronize()
+    want = S.separable_block_plain(x, w_dw, w_pw, a, b, **kw)
+    assert got[0].shape == (batch, 16, 16) and want[0].abs().max() > 0
+    for name, gv, wv in zip(("y", "s1", "s2"), got, want):
+        torch.testing.assert_close(gv, wv, rtol=0, atol=0, msg=name)

@@ -332,3 +332,142 @@ def test_benchmark_inputs_follow_the_seed_and_dtype():
     again = separable_block_inputs(11, 16, 24, batch=3)
     for u, v in zip((x, w_dw, w_pw, a, b), again):
         assert torch.equal(u, v)
+
+
+# ---- the forward kernel's x tile (csrc/separable_block.cu) -------------------
+#
+# A numpy twin of the kernel's slot table: a block of `tile_rows` flattened
+# (b, t_out) output rows from m0 stages each padded input row its rows read
+# once; tap i of tile row r is slot row_slot[r] + i, and slot_src[s] is the
+# offset in x of the slot's input row, or -1 (outside [0, T), or past the
+# last output row), which the kernel writes as 0 (never relu6(b)).
+
+KERNEL_ROWS = 128       # csrc/separable_block.cu: kRows
+KERNEL_DYN_BYTES = 160 * 1024   # kMaxDynBytes
+# shapes whose B * To rows are no multiple of 128, T - k odd at stride 2
+# VALID, SAME with an asymmetric and a symmetric pad (tests/test_torch_cuda.py
+# RAGGED_SHAPES), and taps and strides of the general build
+RAGGED_SLOT_SHAPES = [(37, 40, 56, 1, "VALID"), (37, 40, 56, 2, "SAME"),
+                      (40, 40, 56, 2, "SAME"), (38, 40, 56, 2, "VALID"),
+                      (37, 40, 56, 1, "SAME"), (37, 36, 44, 2, "SAME"),
+                      (38, 20, 28, 2, "VALID"), (37, 19, 27, 1, "VALID")]
+
+
+def _slot_table(m0, tile_rows, batch, t_in, k, stride, pad_lo, t_out, cin):
+    """(row_slot [128], slot_src [nslots]) as the kernel's table pass
+    builds them; every slot is written exactly once."""
+    rows, u = batch * t_out, min(stride, k)
+    row_slot = np.zeros(KERNEL_ROWS, np.int64)
+    src = {}
+    for r in range(tile_rows):
+        m = m0 + r
+        bi, t = divmod(m, t_out)
+        slot = u * r + (k - u) * (bi - m0 // t_out)
+        last = r == tile_rows - 1 or t == t_out - 1
+        ti0 = t * stride - pad_lo
+        for i in range(k if last else u):
+            ti = ti0 + i
+            assert slot + i not in src
+            src[slot + i] = ((bi * t_in + ti) * cin
+                             if m < rows and 0 <= ti < t_in else -1)
+        row_slot[r] = slot
+    nslots = int(row_slot[tile_rows - 1]) + k
+    assert sorted(src) == list(range(nslots))
+    return row_slot, np.array([src[s] for s in range(nslots)])
+
+
+def _tile_slots(r, k, stride, t_out):
+    """The launch's bound on a tile's slots (``tile_slots``)."""
+    u = min(stride, k)
+    return u * r + (k - u) * min((r - 1) // t_out + 2, r)
+
+
+def _tile_rows(k, stride, t_out, slot_bytes=148):
+    """The launch's row tile: the largest power of two up to 128 whose x
+    tile fits (148 bytes per slot: 144 of x and 4 of the table)."""
+    r = KERNEL_ROWS
+    while r > 1 and _tile_slots(r, k, stride, t_out) * slot_bytes \
+            > KERNEL_DYN_BYTES:
+        r //= 2
+    return r
+
+
+def _check_tiles(t, cin, stride, padding, k=3, batch=3, tile_rows=None):
+    rng = np.random.default_rng(t * 31 + cin + k)
+    x = rng.standard_normal((batch, t, cin)).astype(np.float32)
+    a = rng.uniform(0.5, 1.5, cin).astype(np.float32)
+    b = np.full(cin, 0.5, np.float32)           # relu6(b) > 0
+    t_out, pad_lo = K.out_len(t, k, stride, padding)
+    xin = np.clip(x * a + b, 0, 6)
+    taps = [v.reshape(-1, cin).numpy() for v in
+            K._taps(torch.from_numpy(xin), k, stride, pad_lo, t_out)]
+    rows = batch * t_out
+    tile_rows = tile_rows or _tile_rows(k, stride, t_out)
+    flat = xin.reshape(-1)
+    starts = list(range(0, rows, tile_rows))
+    crossing = 0
+    for m0 in starts:
+        row_slot, src = _slot_table(m0, tile_rows, batch, t, k, stride,
+                                    pad_lo, t_out, cin)
+        assert len(src) <= _tile_slots(tile_rows, k, stride, t_out)
+        # the staged tile: the prologue where the slot is inside, else 0
+        tile = np.stack([flat[s:s + cin] if s >= 0 else np.zeros(cin)
+                         for s in src])
+        own = [r for r in range(tile_rows) if m0 + r < rows]
+        crossing += len({(m0 + r) // t_out for r in own}) > 1
+        for i in range(k):
+            np.testing.assert_array_equal(
+                tile[row_slot[own] + i], taps[i][[m0 + r for r in own]])
+    return crossing
+
+
+@pytest.mark.parametrize("shape", SEPARABLE_SHAPES)
+def test_slot_table_gathers_the_taps_at_the_trunk_shapes(shape):
+    t, cin, _, stride, padding = shape
+    assert _tile_rows(3, stride, K.out_len(t, 3, stride, padding)[0]) == 128
+    assert _check_tiles(t, 4, stride, padding) > 0
+
+
+@pytest.mark.parametrize("shape", RAGGED_SLOT_SHAPES)
+def test_slot_table_gathers_the_taps_at_ragged_shapes(shape):
+    t, cin, _, stride, padding = shape
+    assert _check_tiles(t, cin, stride, padding, batch=7) > 0
+
+
+@pytest.mark.parametrize("k,stride,padding,tile_rows", [
+    (5, 1, "SAME", None), (5, 2, "VALID", None), (3, 3, "SAME", None),
+    (8, 2, "SAME", None), (1, 1, "VALID", None), (8, 3, "VALID", 16),
+    (5, 1, "SAME", 1), (200, 1, "SAME", None)])
+def test_slot_table_gathers_the_taps_of_the_general_build(k, stride, padding,
+                                                          tile_rows):
+    _check_tiles(37, 6, stride, padding, k=k, batch=7, tile_rows=tile_rows)
+
+
+def test_row_tile_shrinks_only_where_the_x_tile_would_not_fit():
+    # the trunk's and the general build's usual k keep 128 rows
+    for k, stride, t_out in ((3, 1, 9), (3, 2, 11), (8, 1, 1), (8, 3, 30)):
+        assert _tile_rows(k, stride, t_out) == 128
+    assert _tile_rows(200, 1, 37) == 64
+    # one row's k slots fit up to the kernel's largest k
+    assert _tile_slots(1, K.MAX_FWD_TAPS, 1, 1) * 148 <= KERNEL_DYN_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fold_weights_round_the_f32_product_once(dtype):
+    """Weights already in the compute dtype take one elementwise product;
+    it must equal the f32 product rounded once, bit for bit, also at the
+    ends of the range (tiny products underflow the same way)."""
+    rng = np.random.default_rng(11)
+    w_dw = torch.from_numpy(rng.standard_normal((3, 1, 40)).astype(
+        np.float32) * np.float32(2.0) ** rng.integers(-70, 60, (3, 1, 40)))
+    w_pw = torch.from_numpy(rng.standard_normal((1, 40, 24)).astype(
+        np.float32) * np.float32(2.0) ** rng.integers(-70, 60, (1, 40, 24)))
+    w_dw, w_pw = w_dw.to(dtype), w_pw.to(dtype)
+    want = (w_dw.reshape(3, 40, 1).float()
+            * w_pw.reshape(1, 40, 24).float()).to(dtype)
+    got = K.fold_weights_of(w_dw, w_pw, dtype)
+    assert got.dtype == dtype and got.shape == (3, 40, 24)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
