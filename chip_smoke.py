@@ -5,10 +5,18 @@
 Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and drives four paths:
 
-- decode+augment: holds the kernel against its plain PyTorch version at
-  the train step's shapes, holds the flagship's logits on the card
-  against the CPU, then runs the port's main path — 20 bf16 train steps
-  of ``conv_1d_time_sliced_with_attention`` at batch 384 on a synthetic
+- decode+augment (``[kernel]``): holds the kernel against its plain
+  PyTorch version at the train step's shapes, on a step's draws with the
+  edge cases written in (``edge_case_draws``), at both index dtypes, to
+  the last bit; prints its ``ptxas -v`` line, its device time by
+  ``torch.profiler`` over 50 launches cold (the L2 flushed by a 64 MB
+  write before each, as the step leaves it) and warm (back to back), the
+  CUDA events per wrapper call (host included), its bound and share, the
+  plain version's time, and the device time of ``copy_`` of a tensor of
+  the output's shape (a yardstick the port never calls); holds the
+  flagship's logits on the card against the CPU, then runs the port's
+  main path — 20 bf16 train steps of
+  ``conv_1d_time_sliced_with_attention`` at batch 384 on a synthetic
   bank the size of the full Speech Commands corpus, and one validation
   sweep — and checks that every train step launched the kernel;
 - separable block (``[separable]``): holds the fused forward kernel, in
@@ -36,7 +44,9 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
 - data-parallel training (``[dp]``): two ranks, spawned processes joined
   by NCCL when each has a card of its own and by gloo when they share
   one. Each rank builds and replicates the full-corpus bank, holds
-  ``decode_augment_sharded`` against its plain version on its rows,
+  ``decode_augment_sharded`` against its plain version on its rows (to
+  the last bit) and takes the ``[kernel]`` phase's readings of it at
+  [192, 16000], one rank at a time,
   holds a 2-rank step in f32 and in f64 against one process on the batch,
   trains 20 bf16 steps at global batch 384 and sweeps validation; the
   parent checks that the kernel launched once per step on every rank,
@@ -74,8 +84,15 @@ STEPS, WARMUP = 15, 5             # 20 train steps in all
 # bench.py's full_corpus scale: 75,621 clips = 2.42 GB of int16
 NUM_TRAIN, NUM_VAL, NUM_PSEUDO = 64_727, 6_798, 4_096
 NUM_BACKGROUND, BACKGROUND_LEN = 6, 16000 * 60
-KERNEL_ATOL = 1e-6
+# decode+augment rounds as its plain version does, one operation at a
+# time: equal up to the sign of an exact zero
+KERNEL_ATOL = 0.0
 LOGITS_ATOL = 1e-3
+# decode+augment's device time: launches per reading, and the scratch
+# write (more than the 50 MB L2) that makes a reading cold
+DEVICE_ITERS = 50
+L2_FLUSH_BYTES = 64 << 20
+DECODE_KERNEL = r"decode_augment_kernel"
 KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd")
 # separable block, kernel against its plain version on the same inputs.
 # y: f32 (TF32 off) differs only in the order of the f32 sums of up to
@@ -169,6 +186,80 @@ def decode_augment_bound(bank, bg_flat, file_ids, shifts, fg_vol, bg_pos,
                     for v in (file_ids, shifts, fg_vol, bg_pos, bg_vol))
               + b * t * 4)
     return (*bound(nbytes, 3 * b * t, torch.float32), nbytes)
+
+
+def device_ms(fn, pattern: str, flush=None, iters: int = DEVICE_ITERS):
+    """Mean device time, ms, of the kernels whose name matches the regex
+    ``pattern`` in a ``torch.profiler`` trace of ``iters`` calls of
+    ``fn`` (after one untimed call), each call preceded by ``flush()``
+    when one is given (its kernels must not match). Raises unless exactly
+    one matching kernel ran per call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda
+               and not e.is_user_annotation]
+    hits = [e for e in kernels if re.search(pattern, e.name)]
+    if len(hits) != iters:
+        raise RuntimeError(f"profiler: {len(hits)} kernels match {pattern!r} "
+                           f"in {iters} calls; seen "
+                           f"{sorted({e.name[:80] for e in kernels})}")
+    return sum(e.time_range.end - e.time_range.start for e in hits) \
+        / iters / 1e3
+
+
+def decode_augment_timings(call, plain, shape, device) -> dict:
+    """The times, ms, of the decode+augment kernel whose wrapper call is
+    ``call`` (on one step's draws, output ``shape``): ``device_ms`` its
+    device time with the L2 cold (a 64 MB scratch write before each
+    launch, as the train step's other work leaves it), ``device_ms_warm``
+    back to back, both by
+    ``torch.profiler`` over 50 launches; ``ms`` and ``plain_ms`` the CUDA
+    events per wrapper call of ``call`` and ``plain`` (host included;
+    best of two runs of 50 in turns); ``yardstick_ms`` the device time of
+    ``copy_`` of a tensor of the output's shape, L2 cold (one read and
+    one write of its bytes: the card's practical ceiling for this
+    traffic; the port never calls it)."""
+    from speech_recognition_tpu_torch.export.benchmark import time_calls
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                          device=device)
+    flush = functools.partial(scratch.fill_, 1.0)
+    out = {"device_ms": device_ms(call, DECODE_KERNEL, flush),
+           "device_ms_warm": device_ms(call, DECODE_KERNEL)}
+    plain_ms, kernel_ms, plain_ms2, kernel_ms2 = (
+        time_calls(fn, DEVICE_ITERS, runs=1) for fn in 2 * (plain, call))
+    out["ms"], out["plain_ms"] = (min(kernel_ms, kernel_ms2),
+                                  min(plain_ms, plain_ms2))
+    src = torch.rand(shape, device=device)
+    dst = torch.empty_like(src)
+    out["yardstick_ms"] = device_ms(functools.partial(dst.copy_, src),
+                                    r"Memcpy|copy", flush)
+    return out
+
+
+def decode_augment_line(t: dict, bound_ms: float, bound_by: str,
+                        nbytes: float, card: str) -> str:
+    """The timings of ``decode_augment_timings`` against the bound."""
+    return (f"device time cold {t['device_ms']:.4f} ms (L2 flushed by a "
+            f"{L2_FLUSH_BYTES >> 20} MB write before each of {DEVICE_ITERS} "
+            f"launches; {nbytes / 1e6 / t['device_ms']:.0f} GB/s of "
+            f"{nbytes / 1e6:.1f} MB), warm {t['device_ms_warm']:.4f} ms (back "
+            f"to back); events per wrapper call {t['ms']:.4f} ms (host "
+            f"included); bound {bound_ms:.4f} ms ({bound_by}): share cold "
+            f"{100 * bound_ms / t['device_ms']:.1f} %, warm "
+            f"{100 * bound_ms / t['device_ms_warm']:.1f} %; plain "
+            f"{t['plain_ms']:.4f} ms per call; yardstick copy_ of the "
+            f"output's shape in f32, device time cold "
+            f"{t['yardstick_ms']:.4f} ms | {card}")
 
 
 def separable_bound(shape, batch: int, backward: bool):
@@ -834,8 +925,10 @@ def separable_bwd_phase(device, card: str, build_s: float,
 def edge_case_draws(trainer, ds, starts=(0,)):
     """A training batch's draws with the kernel's edge cases written in
     from each row of ``starts``: zero and most-negative shifts, silence
-    rows, bg_vol 0, the largest legal background position and the top
-    file ids of the bank."""
+    rows, bg_vol 0, the largest legal background position, the top file
+    ids of the bank, shifts at every residue mod 8 (most of them put the
+    wrap inside a 16-byte unit of the output), background positions at
+    every residue mod 4, and a row with both volumes 0."""
     d = trainer.draw_batch()
     n, m = ds.num_clips, ds.background.flat.shape[0]
     for i in starts:
@@ -844,6 +937,9 @@ def edge_case_draws(trainer, ds, starts=(0,)):
         d.bg_vol[i + 8:i + 12] = 0.0
         d.bg_pos[i + 12:i + 16] = m - T
         d.file_ids[i + 16:i + 20] = torch.arange(n - 4, n)
+        d.shifts[i + 20:i + 28] = torch.arange(8) - 4003
+        d.bg_pos[i + 28:i + 32] = torch.arange(4) + (m - T) // 2
+        d.fg_vol[i + 32] = d.bg_vol[i + 32] = 0.0
     return d
 
 
@@ -875,7 +971,7 @@ def dp_rank(rank: int, world: int, init_method: str, backend: str,
         synthetic_device_dataset,
     )
     from speech_recognition_tpu_torch.export.benchmark import (
-        benchmark_train, time_calls,
+        benchmark_train,
     )
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
@@ -948,12 +1044,10 @@ def dp_rank(rank: int, world: int, init_method: str, backend: str,
     for r in range(world):      # one rank at a time on a shared card
         barrier()
         if r == rank:
-            plain_ms, kernel_ms, plain_ms2, kernel_ms2 = (
-                time_calls(fn, 50, runs=1) for fn in 2 * (
-                    lambda: KS.decode_augment_sharded_reference(*args),
-                    lambda: KS.decode_augment_sharded(*args)))
-            out["ms"] = min(kernel_ms, kernel_ms2)
-            out["plain_ms"] = min(plain_ms, plain_ms2)
+            out.update(decode_augment_timings(
+                lambda: KS.decode_augment_sharded(*args),
+                lambda: KS.decode_augment_sharded_reference(*args),
+                (BATCH // world, T), device))
     barrier()
 
     # one 2-rank step against one process on the same global batch,
@@ -1091,9 +1185,8 @@ def dp_phase(card: str):
             f"{r['data_s']:.1f} s, replicated from rank 0 in "
             f"{r['replicate_s']:.2f} s; decode_augment_sharded "
             f"[{BATCH // world}, {T}] max abs err {r['max_abs_err']:.3g} "
-            f"(tol {KERNEL_ATOL}), kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bytes'] / 1e6:.1f} MB) | {card}")
+            f"(tol {KERNEL_ATOL}); " + decode_augment_line(
+                r, r["bound_ms"], r["bound_by"], r["bytes"], card))
         for dtype, tol in DP_TOL.items():
             loss_err, worst_median, median, worst, worst_err = \
                 r["parity"][str(dtype)[6:]]
@@ -1144,7 +1237,7 @@ def dp_phase(card: str):
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss "
         f"{rs[0]['val_loss']:.4f}; launches per rank in the main path "
         f"{rs[0]['launches']}; phase {time.perf_counter() - phase_t0:.1f} s")
-    slowest = max(rs, key=lambda r: r["ms"])
+    slowest = max(rs, key=lambda r: r["device_ms"])
     return {
         "name": "decode_augment_sharded",
         "route": "cuda",
@@ -1153,8 +1246,8 @@ def dp_phase(card: str):
         "launches": sum(r["launches"]["decode_augment_sharded"]
                         for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in rs),
-        "ms": slowest["ms"],
-        "plain_ms": slowest["plain_ms"],
+        **{k: slowest[k] for k in ("ms", "plain_ms", "device_ms",
+                                   "device_ms_warm", "yardstick_ms")},
         "bound_ms": slowest["bound_ms"],
         "bound_by": slowest["bound_by"],
         "library_ms": None,
@@ -1174,7 +1267,7 @@ def main() -> int:
     )
     from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.export.benchmark import (
-        benchmark_train, time_calls,
+        benchmark_train,
     )
     from speech_recognition_tpu_torch.models.layers import BatchNorm
     from speech_recognition_tpu_torch.models.zoo import build_model
@@ -1193,15 +1286,17 @@ def main() -> int:
 
     # 2. build every kernel at once, one nvcc per source
     from speech_recognition_tpu_torch.ops.kernels import build
-    reported = ("separable_block", "separable_block_bwd")
     with concurrent.futures.ThreadPoolExecutor(
-            len(KERNEL_SOURCES) + len(reported)) as pool:
-        ptxas = {n: pool.submit(build.ptxas_report, n) for n in reported}
+            2 * len(KERNEL_SOURCES)) as pool:
+        ptxas = {n: pool.submit(build.ptxas_report, n)
+                 for n in KERNEL_SOURCES}
         builds = dict(zip(KERNEL_SOURCES,
                           pool.map(timed_build, KERNEL_SOURCES)))
         ptxas = {n: f.result() for n, f in ptxas.items()}
     for lib, secs in builds.values():
         log(f"[build] {lib.name} in {secs:.2f} s")
+    for line in ptxas["decode_augment"]:
+        log(f"[kernel] ptxas -v {line}")
 
     # the full-corpus bank the slice trains on (also the kernel's input)
     t0 = time.perf_counter()
@@ -1245,17 +1340,13 @@ def main() -> int:
                            f"{KERNEL_ATOL}")
     args = (ds.wav_bank, bg, d.file_ids, d.shifts, d.fg_vol, d.bg_pos,
             d.bg_vol)
-    plain_ms, kernel_ms, plain_ms2, kernel_ms2 = (
-        time_calls(fn, 50, runs=1) for fn in 2 * (
-            lambda: K.decode_augment_reference(*args),
-            lambda: K.decode_augment(*args)))
-    kernel_ms, plain_ms = min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2)
+    timings = decode_augment_timings(
+        lambda: K.decode_augment(*args),
+        lambda: K.decode_augment_reference(*args), (BATCH, T), device)
     bound_ms, bound_by, nbytes = decode_augment_bound(*args)
     log(f"[kernel] decode_augment B={BATCH} T={T}: max abs err {max_err:.3g}"
         f" (int64 {errs[0]:.3g}, int32 {errs[1]:.3g}; tol {KERNEL_ATOL}); "
-        f"kernel {kernel_ms:.4f} ms ({nbytes / 1e6 / kernel_ms:.0f} GB/s of "
-        f"{nbytes / 1e6:.1f} MB; bound {bound_ms:.4f} ms, {bound_by}), "
-        f"plain {plain_ms:.4f} ms | {card}")
+        + decode_augment_line(timings, bound_ms, bound_by, nbytes, card))
 
     # 4. the separable block: kernel against plain, then its benchmark
     separable_kernels = separable_phase(device, card,
@@ -1341,8 +1432,7 @@ def main() -> int:
         "replaces": "speech_recognition_tpu/ops/pallas/augment_kernel.py:188",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        **timings,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,

@@ -9,7 +9,10 @@ For each row b and sample i::
 
 ``decode_augment`` launches the kernel for CUDA tensors and uses
 ``decode_augment_reference`` only for CPU tensors. On a card it never
-falls back: a launch that fails raises.
+falls back: a launch that fails raises. The kernel rounds as the plain
+version does and equals it bit for bit, but for the sign of an exact
+zero: it reads no bank for a row with fg_vol 0 and no background for a
+row with bg_vol 0, and takes the skipped term as +0.
 """
 
 from __future__ import annotations

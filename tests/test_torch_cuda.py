@@ -128,6 +128,137 @@ def test_train_steps_launch_the_kernel(cuda):
     assert conf.sum() == 32 and np.isfinite(loss)
 
 
+def _draws(device, t, batch, index_dtype, *, seed=1, num_clips=6,
+           views=False):
+    """Draws at any T: shifts over [-2T, 2T], background positions over
+    the whole legal range, the last bank row at the largest legal window
+    in the last row, and rows with fg_vol 0 (row 1) and bg_vol 0 (row 2).
+    With ``views`` the bank and the background are ``[1:]`` views (at an
+    odd T, bases that are not 16-byte aligned)."""
+    g = np.random.default_rng(seed)
+    extra = 1 if views else 0
+    bank = torch.from_numpy(g.integers(-32768, 32767, (num_clips + extra, t),
+                                       dtype=np.int16)).to(device)[extra:]
+    bg = torch.from_numpy(g.uniform(-0.2, 0.2, 3 * t + 7 + extra).astype(
+        np.float32)).to(device)[extra:]
+    m = bg.shape[0]
+    fids = g.integers(0, num_clips, batch)
+    shifts = g.integers(-2 * t, 2 * t + 1, batch)
+    bg_pos = g.integers(0, m - t + 1, batch)
+    fids[-1], bg_pos[-1] = num_clips - 1, m - t
+    fg = g.uniform(-1.5, 1.5, batch).astype(np.float32)
+    bg_vol = g.uniform(0, 0.3, batch).astype(np.float32)
+    fg[1 % batch], bg_vol[2 % batch] = 0.0, 0.0
+
+    def idx(a):
+        return torch.from_numpy(a).to(device, index_dtype)
+
+    return (bank, bg, idx(fids), idx(shifts),
+            torch.from_numpy(fg).to(device), idx(bg_pos),
+            torch.from_numpy(bg_vol).to(device))
+
+
+def _assert_kernel_equals_plain(args):
+    """One launch, equal to the plain version (torch.equal: +0 == -0)."""
+    before = K.LAUNCHES
+    got = K.decode_augment(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    want = K.decode_augment_reference(*args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("t", [16000, 16001])
+def test_kernel_every_shift_and_bg_pos_residue(cuda, t, index_dtype):
+    # 32 rows: every shift residue mod 8 with every bg_pos residue mod 4;
+    # the wrap falls inside a 16-byte unit of the output at most of them
+    args = list(_draws(cuda, t, 32, index_dtype))
+    g, r = np.random.default_rng(5), np.arange(32)
+    shifts = 8 * g.integers(-t // 8, t // 8, 32) + r % 8
+    bg_pos = 4 * g.integers(0, (args[1].shape[0] - t) // 4, 32) + r // 8
+    args[3], args[5] = (torch.from_numpy(a).to(cuda, index_dtype)
+                        for a in (shifts, bg_pos))
+    _assert_kernel_equals_plain(args)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("t", [16000, 16001, 37, 8, 1])
+def test_kernel_at_odd_lengths(cuda, t, index_dtype):
+    _assert_kernel_equals_plain(_draws(cuda, t, 5, index_dtype))
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("t", [16001, 37])
+def test_kernel_on_misaligned_views(cuda, t, index_dtype):
+    args = _draws(cuda, t, 9, index_dtype, views=True)
+    assert args[0].data_ptr() % 16 and args[1].data_ptr() % 16
+    _assert_kernel_equals_plain(args)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 384])
+def test_kernel_batches_at_odd_length(cuda, batch):
+    _assert_kernel_equals_plain(_draws(cuda, 16001, batch, torch.int64))
+
+
+@pytest.mark.parametrize("t", [16000, 16001])
+def test_kernel_last_bank_row_at_the_largest_window(cuda, t):
+    # every row reads the last bank row and the last window, whose start
+    # M - T = 2 T + 7 is not 16-byte aligned, on whole tensors and views
+    for views in (False, True):
+        args = list(_draws(cuda, t, 4, torch.int64, views=views))
+        m = args[1].shape[0]
+        args[2] = torch.full_like(args[2], args[0].shape[0] - 1)
+        args[5] = torch.full_like(args[5], m - t)
+        args[3] = torch.tensor([0, -1, 3, -T - 5], device=cuda)
+        _assert_kernel_equals_plain(args)
+
+
+def test_kernel_zero_volume_rows(cuda):
+    # fg_vol 0, bg_vol 0 and both, at both alignments of T
+    for t in (16000, 16001):
+        args = _draws(cuda, t, 12, torch.int64)
+        args[4][0:4] = 0.0
+        args[6][4:8] = 0.0
+        args[4][8:12] = 0.0
+        args[6][8:12] = 0.0
+        _assert_kernel_equals_plain(args)
+        out = K.decode_augment(*args)
+        assert (out[8:12] == 0).all()
+
+
+def test_kernel_nan_rows_whatever_the_volumes(cuda):
+    bank, bg, fids, shifts, fg, bg_pos, bg_vol = _draws(
+        cuda, 16001, 6, torch.int64)
+    fids[0], fids[1] = -1, bank.shape[0]            # ids outside the bank
+    bg_pos[2], bg_pos[3] = -1, bg.shape[0] - 16001 + 1  # windows outside
+    fg[0:4:2] = 0.0
+    bg_vol[0:4] = 0.0
+    out = K.decode_augment(bank, bg, fids, shifts, fg, bg_pos, bg_vol)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[:4]).all()
+    assert torch.isfinite(out[4:]).all()
+
+
+def test_kernel_replays_in_a_cuda_graph(cuda):
+    args = _draws(cuda, 16000, 64, torch.int64)
+    eager = K.decode_augment(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):     # warm up off the default stream
+        K.decode_augment(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K.decode_augment(*args)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
 # separable block: y within one bf16 step (bf16) or f32 summation order
 # (f32, TF32 off); statistics relative to sum|y| and to s2
 SEP_Y_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
