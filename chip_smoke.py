@@ -50,7 +50,23 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   holds a 2-rank step in f32 and in f64 against one process on the batch,
   trains 20 bf16 steps at global batch 384 and sweeps validation; the
   parent checks that the kernel launched once per step on every rank,
-  that the losses and the parameters are the same on both ranks.
+  that the losses and the parameters are the same on both ranks;
+- the accuracy signal (``[fit]``): holds the ``Frontend`` (f32, TF32
+  off) and ``conv_1d_spec``'s logits on the card against the CPU, writes
+  the hard corpus at the calibration defaults to a temporary directory
+  and runs the calibration (``tools/calibrate_accuracy.py``: 12 epochs of
+  ``conv_1d_spec`` at batch 128 in bf16, BN re-estimation over 16
+  batches, ReduceLROnPlateau) for seeds 0 and 1; prints each epoch's
+  validation accuracy and clips/s and each record, checks that
+  decode+augment launched once per train step and per BN batch, and
+  fails if the seed mean of ``val_acc_best`` is below 0.8309 (the JAX
+  band's mean less two standard deviations);
+- the bench (``[bench]``): runs ``python -m
+  speech_recognition_tpu_torch.bench`` in a child at the full-corpus
+  scale (3 reps of 100 steps, no accuracy signal), checks that its first
+  stdout line is the metric JSON with a finite positive value and that
+  it launched decode+augment once per train step, and echoes the line
+  and its diagnostics.
 
 Any failure, on any rank, raises and exits non-zero; without a CUDA
 device it exits non-zero before printing any result. The last two lines
@@ -138,6 +154,25 @@ DP_TIMEOUT_S = 600
 # the f64 bounds are tight.
 DP_TOL = {torch.float32: (1e-5, 1e-2, 1e-1),
           torch.float64: (1e-12, 1e-12, 1e-9)}
+# the [fit] phase: the accuracy signal's calibration (bench.py's ACC_ARGS
+# at calibrate_accuracy.py's defaults: 100 clips per word, corpus seed 0,
+# batch 128, BN re-estimation over 16 batches, plateau 0.5/4/1e-5), in bf16
+FIT_MODEL = "conv_1d_spec"
+FIT_SEEDS = (0, 1)
+FIT_ARGS = ["--model", FIT_MODEL, "--epochs", "12", "--steps_per_dispatch",
+            "8", "--compute_dtype", "bfloat16"]
+# the seed mean of val_acc_best must reach the band's mean less two sd:
+# 0.8571 - 2 x 0.0131 (bench.py:162-166)
+FIT_ACC_GATE = 0.8309
+# the frontend and conv_1d_spec, card against CPU in f32 with TF32 off:
+# relative to the largest |value| (the log-mel where mel > 1e-3)
+FRONTEND_RTOL = {"spectrogram": 1e-5, "log_mel": 1e-4, "mfcc": 1e-4}
+SPEC_LOGITS_RTOL = 1e-3
+# the [bench] phase: the port's bench at the full-corpus scale, 3 reps of
+# 100 steps, without the accuracy signal
+BENCH_ENV = {"BENCH_SCALE_ORDER": "full_corpus", "BENCH_SMALL": "1",
+             "BENCH_SPD": "100", "BENCH_SKIP_ACC": "1"}
+BENCH_TIMEOUT_S = 600
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1254,6 +1289,192 @@ def dp_phase(card: str):
     }
 
 
+def frontend_card_vs_cpu(device, wav_cpu: torch.Tensor, settings) -> dict:
+    """Max error of each ``Frontend`` output on the card against the CPU
+    (f32, TF32 off), relative to the largest |value| of the CPU's (the
+    log-mel where mel > 1e-3, as the parity tests take it)."""
+    from speech_recognition_tpu_torch.ops.frontend import LOG_OFFSET, Frontend
+
+    front = Frontend(settings, "highest")
+    errs = {}
+    for name in FRONTEND_RTOL:
+        want = getattr(front, name)(wav_cpu)
+        got = getattr(front, name)(wav_cpu.to(device)).cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"frontend {name}: {tuple(got.shape)} or "
+                               f"non-finite values")
+        d = (got - want).abs()
+        if name == "log_mel":
+            d = d[torch.exp(want) - LOG_OFFSET > 1e-3]
+            want = want[torch.exp(want) - LOG_OFFSET > 1e-3]
+        errs[name] = float(d.max() / want.abs().max())
+    return errs
+
+
+def spec_logits_card_vs_cpu(device, x_cpu: torch.Tensor) -> float:
+    """Max abs error of ``conv_1d_spec``'s eval logits on the card against
+    the CPU over the max |logit| (f32, TF32 off), with the BN running
+    statistics set to the batch's (one train-mode pass at momentum 0)."""
+    from speech_recognition_tpu_torch.models.layers import BatchNorm
+    from speech_recognition_tpu_torch.models.zoo import build_model
+
+    model, _ = build_model(FIT_MODEL, num_classes=12,
+                           generator=torch.Generator().manual_seed(1))
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = 0.0
+    with torch.no_grad():
+        model.train()(x_cpu, torch.Generator())
+        model.eval()
+        want = model(x_cpu)
+        got = copy.deepcopy(model).to(device)(x_cpu.to(device)).cpu()
+    if got.shape != (x_cpu.shape[0], 12) or not torch.isfinite(got).all():
+        raise RuntimeError(f"conv_1d_spec logits {tuple(got.shape)} or "
+                           f"non-finite values")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def fit_phase(device, card: str) -> int:
+    """The [fit] phase: the frontend and conv_1d_spec on the card against
+    the CPU, then the accuracy calibration for each seed on a hard corpus
+    written to a temporary directory; checks the launches of
+    decode+augment and the gate on the seed mean. Returns the launches."""
+    import tempfile
+    from pathlib import Path
+
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.data.hard_corpus import (
+        build_hard_corpus,
+    )
+    from speech_recognition_tpu_torch.data.wav import load_wav_file
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.tools import calibrate_accuracy as C
+
+    phase_t0 = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="srt_torch_fit_") as td:
+        args = C.parse_args(FIT_ARGS)
+        root = Path(td) / "audio"
+        t0 = time.perf_counter()
+        build_hard_corpus(root, clips_per_word=args.clips_per_word,
+                          seed=args.corpus_seed,
+                          snr_db_range=(args.snr_lo, args.snr_hi),
+                          pitch_span_l=args.pitch_span_l)
+        log(f"[fit] hard corpus ({args.clips_per_word} clips per word, "
+            f"corpus seed {args.corpus_seed}) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        settings = prepare_model_settings(12, output_representation="spec")
+        wav = torch.from_numpy(np.stack([
+            load_wav_file(str(p), settings.desired_samples)
+            for p in sorted(root.glob("*/spk00[0-3]_nohash_0.wav"))[:8]]))
+        errs = frontend_card_vs_cpu(device, wav, settings)
+        bad = {k: v for k, v in errs.items() if not v <= FRONTEND_RTOL[k]}
+        log(f"[fit] Frontend f32 (TF32 off), card vs CPU on {len(wav)} "
+            f"corpus clips, max abs err / max |value|: "
+            + ", ".join(f"{k} {v:.3g} (tol {FRONTEND_RTOL[k]})"
+                        for k, v in errs.items()))
+        if bad:
+            raise RuntimeError(f"frontend card vs CPU: {bad}")
+        x = Frontend(settings).features(wav, "spec")
+        logit_err = spec_logits_card_vs_cpu(device, x)
+        log(f"[fit] {FIT_MODEL} f32 logits, card vs CPU on {len(wav)} "
+            f"clips: max abs err / max |logit| {logit_err:.3g} (tol "
+            f"{SPEC_LOGITS_RTOL})")
+        if not logit_err <= SPEC_LOGITS_RTOL:
+            raise RuntimeError(f"{FIT_MODEL} logits card vs CPU: "
+                               f"{logit_err}")
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        bests = []
+        for seed in FIT_SEEDS:
+            args = C.parse_args(FIT_ARGS + ["--seed", str(seed)])
+            t0 = time.perf_counter()
+            K.LAUNCHES = 0
+            record, trainer, history = C.calibrate(args, corpus_root=root)
+            seed_launches = K.LAUNCHES
+            seed_s = time.perf_counter() - t0
+            steps = trainer.dataset.set_size("training") // args.batch_size
+            expected = args.epochs * (steps + args.bn_recalibration_batches)
+            for epoch, (acc, cps) in enumerate(zip(
+                    history["val_categorical_accuracy"],
+                    history["clips_per_sec"])):
+                log(f"[fit] seed {seed} epoch {epoch:2d}: val acc "
+                    f"{acc:.4f}, {cps:.0f} clips/s (train steps, host clock "
+                    f"to the read of the last step's loss)")
+            log(f"[fit] seed {seed} record: {json.dumps(record)}")
+            conf = history["confusion"][-1]
+            n_val = trainer.dataset.set_size("validation")
+            if conf.sum() != n_val // args.batch_size * args.batch_size:
+                raise RuntimeError(f"[fit] confusion sums to {conf.sum()} "
+                                   f"of {n_val} validation clips")
+            log(f"[fit] seed {seed}: {args.epochs} epochs of {steps} steps "
+                f"at batch {args.batch_size}, {trainer.compute_dtype}, BN "
+                f"re-estimation over {args.bn_recalibration_batches} "
+                f"batches per epoch, in {seed_s:.1f} s; decode_augment "
+                f"launches {seed_launches} (expected {expected}: one per "
+                f"train step and per BN batch) | {card}")
+            if seed_launches != expected:
+                raise RuntimeError(f"[fit] {seed_launches} decode_augment "
+                                   f"launches, expected {expected}")
+            launches += seed_launches
+            bests.append(record["val_acc_best"])
+            del trainer, history
+    mean = sum(bests) / len(bests)
+    log(f"[fit] val_acc_best per seed {bests}, mean {mean:.4f} (gate "
+        f"{FIT_ACC_GATE}); phase {time.perf_counter() - phase_t0:.1f} s")
+    if mean < FIT_ACC_GATE:
+        raise RuntimeError(f"[fit] seed mean {mean:.4f} < {FIT_ACC_GATE}")
+    return launches
+
+
+def bench_phase(card: str) -> int:
+    """The [bench] phase: ``python -m speech_recognition_tpu_torch.bench``
+    in a child at the full-corpus scale; its first stdout line must be
+    the metric JSON with a finite positive value, and its decode+augment
+    launches must equal its train steps. Returns the launches."""
+    import math
+    import os
+
+    env = dict(os.environ, **BENCH_ENV)
+    env.pop("BENCH_SCALE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "speech_recognition_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith(("rep ", "diagnostics:", "bench total")):
+            log(f"[bench] {line}")
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"[bench] rc {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    metric = json.loads(lines[0])
+    value = metric.get("value")
+    if metric.get("metric") != "train_clips_per_sec" \
+            or not isinstance(value, (int, float)) \
+            or not math.isfinite(value) or value <= 0:
+        raise RuntimeError(f"[bench] first stdout line: {lines[0]}")
+    diag = [json.loads(ln.split(":", 1)[1]) for ln in proc.stderr.splitlines()
+            if ln.startswith("diagnostics:")]
+    if len(diag) != 1 or diag[0]["decode_augment_launches"] \
+            != diag[0]["train_steps"]:
+        raise RuntimeError(f"[bench] diagnostics {diag}")
+    log(f"[bench] metric line: {lines[0]} (env {BENCH_ENV}; {wall:.1f} s) "
+        f"| {card}")
+    return diag[0]["decode_augment_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1425,12 +1646,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_kernel = dp_phase(card)
 
+    # 8. the accuracy signal's calibration, then the bench, each with the
+    # counts set to 0 just before
+    launches_by_path = {"slice": launches,
+                        "fit": fit_phase(device, card),
+                        "bench": bench_phase(card)}
+
     print(json.dumps({"kernels": [{
         "name": "decode_augment",
         "route": "cuda",
         "source": "speech_recognition_tpu_torch/csrc/decode_augment.cu",
         "replaces": "speech_recognition_tpu/ops/pallas/augment_kernel.py:188",
-        "launches": launches,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
         "max_abs_err": max_err,
         **timings,
         "bound_ms": bound_ms,

@@ -9,8 +9,13 @@ Ported so far: the flagship train step and eval step
 (``conv_1d_time_sliced_with_attention`` on raw waveforms), on one card or
 data-parallel over several (``parallel/``), with the fused decode+augment
 data path as a hand-written CUDA kernel (``csrc/decode_augment.cu``), and
-the fused separable block's forward and backward kernels. ROADMAP.md
-lists what is still to come.
+the fused separable block's forward and backward kernels; training from
+a corpus on disk (``data/index.py``, ``data/wav.py``) with the spectral
+frontend (``ops/frontend.py``), ``conv_1d_spec``, ``Trainer.fit`` with BN
+re-estimation and checkpoints; the accuracy calibration
+(``tools/calibrate_accuracy.py``) and the bench (``python -m
+speech_recognition_tpu_torch.bench``). ROADMAP.md lists what is still to
+come.
 """
 
 __version__ = "0.1.0"

@@ -36,6 +36,14 @@ class ModelSettings:
     lower_edge_hertz: float = 80.0
     upper_edge_hertz: float = 7600.0
 
+    @property
+    def fft_length(self) -> int:
+        """Smallest power of two >= window (tf.signal.stft fft_length=None)."""
+        n = 1
+        while n < self.window_size_samples:
+            n *= 2
+        return n
+
 
 def prepare_model_settings(label_count: int,
                            sample_rate: int = 16000,

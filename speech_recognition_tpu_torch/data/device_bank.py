@@ -14,14 +14,17 @@ validation/testing walk the partition in order (input_data.py:459-468).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from speech_recognition_tpu_torch.config import ModelSettings
+from speech_recognition_tpu_torch.data.index import DatasetIndex
+from speech_recognition_tpu_torch.data.wav import (
+    INT16_DECODE_SCALE, decode_batch_int16, decode_files_variable,
+)
 from speech_recognition_tpu_torch.ops.augment import BackgroundBank
-
-INT16_DECODE_SCALE = 32768.0
 
 
 @dataclasses.dataclass
@@ -104,6 +107,64 @@ class DeviceDataset:
         wav = self.decode(part.file_ids[sl])
         wav = wav * (~part.is_silence[sl]).float()[:, None]
         return wav, part.labels[sl]
+
+
+def build_device_dataset(index: DatasetIndex,
+                         settings: ModelSettings,
+                         device: torch.device,
+                         include_pseudo: bool = True,
+                         modes: Optional[Sequence[str]] = None,
+                         ) -> DeviceDataset:
+    """Decode every referenced file once and put the packed bank on
+    ``device``.
+
+    Duplicate references (the silence entries all point at one file,
+    input_data.py:244-254) share one bank row; rows are in order of first
+    reference over ``modes``. ``modes`` restricts which partitions are
+    staged. Background clips longer than one clip make the background
+    bank (none if there are no such clips).
+    """
+    desired = settings.desired_samples
+    if modes is None:
+        modes = ["training", "validation", "testing"]
+        if include_pseudo:
+            modes.append("pseudo")
+    modes = list(modes)
+
+    path_to_row: Dict[str, int] = {}
+    ordered_paths = []
+    for mode in modes:
+        for e in index.data_index[mode]:
+            if e.file not in path_to_row:
+                path_to_row[e.file] = len(ordered_paths)
+                ordered_paths.append(e.file)
+    bank = decode_batch_int16(ordered_paths, desired)
+
+    partitions = {}
+    for mode in modes:
+        entries = index.data_index[mode]
+        file_ids = np.array([path_to_row[e.file] for e in entries],
+                            dtype=np.int64)
+        partitions[mode] = Partition(
+            file_ids=torch.from_numpy(file_ids).to(device),
+            labels=torch.from_numpy(
+                index.labels_array(mode).astype(np.int64)).to(device),
+            is_silence=torch.from_numpy(
+                index.is_silence_array(mode)).to(device))
+
+    background = None
+    if index.background_files:
+        clips = [c.astype(np.float32) / INT16_DECODE_SCALE
+                 for c in decode_files_variable(index.background_files)]
+        if any(len(c) > desired for c in clips):
+            background = BackgroundBank.from_arrays(clips, desired, device)
+
+    return DeviceDataset(
+        wav_bank=torch.from_numpy(bank).to(device),
+        partitions=partitions,
+        background=background,
+        num_classes=max(index.word_to_index.values()) + 1,
+        desired_samples=desired)
 
 
 def synthetic_device_dataset(device: torch.device,

@@ -1,9 +1,11 @@
 """Benchmarks on the card: the train step, on one card or one rank of a
 data-parallel mesh (port of
-speech_recognition_tpu/export/benchmark.py::benchmark_train), and the
-separable-block kernels at the flagship's trunk shapes: the forward
-(port of scripts/bench_separable_kernel.py) and the forward with its
-gradients (the path of the JAX package's custom VJP).
+speech_recognition_tpu/export/benchmark.py::benchmark_train), its device
+busy time by ``torch.profiler`` (``traced_train_device_time``) and its
+FLOPs (``train_step_flops``), and the separable-block kernels at the
+flagship's trunk shapes: the forward (port of
+scripts/bench_separable_kernel.py) and the forward with its gradients
+(the path of the JAX package's custom VJP).
 
 Each times a run of calls with a pair of ``torch.cuda.Event``s on the
 current stream and a final ``torch.cuda.synchronize()``: the elapsed
@@ -85,6 +87,68 @@ def benchmark_train(trainer, state, steps: int = 100,
         "ranks": trainer.mesh.size,
         "device": torch.cuda.get_device_name(device),
     }
+
+
+def traced_train_device_time(trainer, state, steps: int = 20,
+                             warmup: int = 2) -> Dict[str, Any]:
+    """Device busy time of the train step from a ``torch.profiler`` trace
+    (port of export/benchmark.py::traced_train_device_time).
+
+    Runs ``warmup`` untimed steps, then traces ``steps`` steps of the same
+    trainer and state (updated in place) and takes the union of the
+    intervals in which a kernel, copy or memset ran on the card: the time
+    the device was busy, host gaps excluded. An honest host-clock or
+    CUDA-event time of the same steps sits at or above it. Returns
+    ``device_ms_per_step``, ``device_clips_per_sec``, ``device_busy_ms``,
+    ``kernels_per_step`` and ``top_kernels`` (the ten largest by total
+    device time, ms per step). Raises if the trace holds no device time.
+    """
+    device = trainer.device
+    if device.type != "cuda":
+        raise RuntimeError(f"traced_train_device_time measures a CUDA "
+                           f"device; the trainer runs on {device}")
+    for _ in range(warmup):
+        trainer.train_step(state)
+    torch.cuda.synchronize(device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            trainer.train_step(state)
+        torch.cuda.synchronize(device)
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == cuda and not e.is_user_annotation)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for start, stop, name in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+    ms_per_step = busy_us / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "device_ms_per_step": ms_per_step,
+        "device_clips_per_sec": trainer.batch_size * 1e3 / ms_per_step,
+        "device_busy_ms": busy_us / 1e3,
+        "kernels_per_step": len(spans) / steps,
+        "top_kernels": {n[:60]: us / 1e3 / steps for n, us in top},
+    }
+
+
+def train_step_flops(trainer, state) -> float:
+    """FLOPs of one train step as ``torch.utils.flop_counter`` counts
+    them: the matmuls and convolutions of the forward and the backward
+    (the elementwise work, the optimizer and the data path count 0).
+    Runs one step; ``state`` is updated in place."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        trainer.train_step(state)
+    return float(counter.get_total_flops())
 
 
 def separable_block_inputs(t: int, cin: int, cout: int, *,

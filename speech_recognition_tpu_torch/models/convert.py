@@ -1,4 +1,4 @@
-"""Move flagship weights from the flax layout to the port's ``state_dict``.
+"""Move zoo weights from the flax layout to the port's ``state_dict``.
 
 Layouts (flax is NWC, the port NCW):
 
@@ -7,11 +7,17 @@ Layouts (flax is NWC, the port NCW):
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and batch_stats
   ``mean``/``var`` -> ``running_mean``/``running_var``, one to one.
 
-Module names: ``ConvBN_0`` -> ``stem``, ``DepthwiseConvBlock_i`` ->
-``blocks.i`` (its ``Conv_0``/``Conv_1`` -> ``depthwise``/``pointwise``),
-``Dense_0`` -> ``attention``, ``Dense_1`` -> ``head``, ``BatchNorm_0``
--> ``bn``. The inputs are nested dicts of numpy arrays (e.g. from
-``jax.device_get``), so this module needs no jax.
+A grouped conv's flax kernel (k, in/g, out) and torch's (out, in/g, k)
+both give group j the output channels [j out/g, (j+1) out/g), so the same
+transpose carries it.
+
+Module names, the flagship: ``ConvBN_0`` -> ``stem``,
+``DepthwiseConvBlock_i`` -> ``blocks.i`` (its ``Conv_0``/``Conv_1`` ->
+``depthwise``/``pointwise``), ``Dense_0`` -> ``attention``, ``Dense_1``
+-> ``head``, ``BatchNorm_0`` -> ``bn``. ``conv_1d_spec``: ``ConvBN_i``
+-> ``blocks.i`` (``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``),
+``Dense_0`` -> ``head``. The inputs are nested dicts of numpy arrays
+(e.g. from ``jax.device_get``), so this module needs no jax.
 """
 
 from __future__ import annotations
@@ -34,21 +40,30 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), np.asarray(v)
 
 
-def _module_name(path: Tuple[str, ...]) -> str:
+FLAGSHIP = "conv_1d_time_sliced_with_attention"
+
+
+def _module_name(path: Tuple[str, ...], model: str) -> str:
     top, *inner = path
     kind, _, idx = top.rpartition("_")
-    if kind == "ConvBN":
+    if model == FLAGSHIP and kind == "ConvBN":
         names = {"Conv_0": "stem.conv", "BatchNorm_0": "stem.bn"}
-    elif kind == "DepthwiseConvBlock":
+    elif model == FLAGSHIP and kind == "DepthwiseConvBlock":
         names = {"Conv_0": f"blocks.{idx}.depthwise",
                  "Conv_1": f"blocks.{idx}.pointwise",
                  "BatchNorm_0": f"blocks.{idx}.bn"}
-    elif kind == "Dense":
+    elif model == FLAGSHIP and kind == "Dense" and not inner:
         return {"0": "attention", "1": "head"}[idx]
+    elif model == "conv_1d_spec" and kind == "ConvBN":
+        names = {"Conv_0": f"blocks.{idx}.conv",
+                 "BatchNorm_0": f"blocks.{idx}.bn"}
+    elif model == "conv_1d_spec" and kind == "Dense" and idx == "0" \
+            and not inner:
+        return "head"
     else:
-        raise KeyError(f"no port counterpart for flax module {top!r}")
+        raise KeyError(f"no {model} counterpart for flax module {top!r}")
     if len(inner) != 1 or inner[0] not in names:
-        raise KeyError(f"no port counterpart for flax path {path!r}")
+        raise KeyError(f"no {model} counterpart for flax path {path!r}")
     return names[inner[0]]
 
 
@@ -60,9 +75,9 @@ def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
-def from_flax(params: Mapping[str, Any],
-              batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` + ``batch_stats`` -> the flagship's ``state_dict``.
+def from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+              model: str = FLAGSHIP) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` + ``batch_stats`` -> ``model``'s ``state_dict``.
 
     Also maps any params-shaped tree (gradients, for instance) when
     ``batch_stats`` is empty. Tensors keep the arrays' dtype.
@@ -71,7 +86,7 @@ def from_flax(params: Mapping[str, Any],
     for tree in (params, batch_stats):
         for path, value in _flatten(tree):
             *mod, leaf = path
-            key = f"{_module_name(tuple(mod))}.{_LEAF[leaf]}"
+            key = f"{_module_name(tuple(mod), model)}.{_LEAF[leaf]}"
             out[key] = torch.from_numpy(np.array(
                 _to_torch_layout(leaf, value), order="C"))
     return out

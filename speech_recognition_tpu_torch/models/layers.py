@@ -15,6 +15,8 @@ so that a step on W ranks is the one-device step on the same batch.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -115,6 +117,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
         self.mesh = None
+        self.batch_stats = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -143,6 +146,9 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.batch_stats is not None:    # inside ``collect_batch_stats``
+            self.batch_stats.append((mean, var))
+            return
         m = self.momentum
         self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
         self.running_var.mul_(m).add_(var, alpha=1.0 - m)
@@ -191,12 +197,19 @@ class Dropout(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv -> BatchNorm -> relu6 (layers.py ConvBN)."""
+    """Conv -> BatchNorm -> relu6 (layers.py ConvBN); ``groups`` > 1 gives
+    a grouped convolution, group j making output channels
+    [j Cout/g, (j+1) Cout/g) from input channels [j Cin/g, (j+1) Cin/g),
+    as flax's ``feature_group_count`` does."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
-                 stride: int = 1, padding: str = "same"):
+                 stride: int = 1, padding: str = "same", groups: int = 1):
         super().__init__()
-        self.conv = Conv(in_channels, features, kernel, stride, padding)
+        if in_channels % groups or features % groups:
+            raise ValueError(f"{in_channels} -> {features} channels do not "
+                             f"split into {groups} groups")
+        self.conv = Conv(in_channels, features, kernel, stride, padding,
+                         groups)
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -222,6 +235,13 @@ class DepthwiseConvBlock(nn.Module):
         return relu6(self.bn(self.pointwise(self.depthwise(x))))
 
 
+def truncate_to_groups(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Drop trailing channels of NCW ``x`` so that channels % groups == 0
+    (zoo.py _truncate_to_groups; the reference's slicing, model.py:1306)."""
+    keep = x.shape[1] // groups * groups
+    return x[:, :keep] if keep != x.shape[1] else x
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over every axis after the channel axis: [B, C, ...] -> [B, C]."""
     return x.mean(dim=tuple(range(2, x.ndim)))
@@ -229,6 +249,23 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=tuple(range(2, x.ndim)))
+
+
+@contextlib.contextmanager
+def collect_batch_stats(module: nn.Module):
+    """Inside, each train-mode BatchNorm of ``module`` appends the (mean,
+    biased variance) it normalised with, in at least float32, to its
+    list in the yielded ``{BatchNorm: list}``, and leaves its running
+    statistics alone."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    stats = {m: [] for m in layers}
+    for m in layers:
+        m.batch_stats = stats[m]
+    try:
+        yield stats
+    finally:
+        for m in layers:
+            m.batch_stats = None
 
 
 def use_mesh(module: nn.Module, mesh) -> None:

@@ -2,15 +2,17 @@
 
 One train step: draw the batch (sample ids and augmentation parameters)
 from the trainer's ``torch.Generator``, build it (fused decode+augment
-kernel -> features), then forward, backward and the Keras RMSprop update.
-Everything stays on the dataset's device, and nothing in a step waits
-for the device: losses come back as device tensors.
+kernel -> ``Frontend`` features), then forward, backward and the
+optimizer update of the model's recipe. Everything stays on the
+dataset's device, and nothing in a step waits for the device: losses
+come back as device tensors.
 
 Ported: ``init_state``, the two halves of ``_sample_batch``
 (``draw_batch``/``build_batch``, so tests can inject draws),
 ``_update_step``, ``train_step``, ``train_many`` (a plain loop),
-``_eval_step`` and ``evaluate``. BN re-estimation, ``fit``, checkpoints
-and streaming come with ROADMAP A5/A10/A12.
+``_eval_step``, ``evaluate``, BN re-estimation
+(``recalibrate_batch_stats``), ``fit`` and
+``reference_pseudo_schedule``. Streaming comes with ROADMAP A10.
 
 Data parallelism (``mesh`` of W > 1 ranks, one process each; the JAX
 trainer's multi-device mesh): every rank draws the global batch from the
@@ -27,7 +29,8 @@ is the single-device trainer, with no collective.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,13 +39,13 @@ from torch import nn
 from speech_recognition_tpu_torch.config import AugmentConfig, ModelSettings
 from speech_recognition_tpu_torch.data.device_bank import DeviceDataset
 from speech_recognition_tpu_torch.models.layers import (
-    at_least_float32, use_mesh,
+    at_least_float32, collect_batch_stats, use_mesh,
 )
 from speech_recognition_tpu_torch.models.zoo import build_model, get_spec
 from speech_recognition_tpu_torch.ops.augment import (
     augment_batch, draw_augment_params,
 )
-from speech_recognition_tpu_torch.ops.frontend import features
+from speech_recognition_tpu_torch.ops.frontend import Frontend
 from speech_recognition_tpu_torch.ops.kernels.decode_augment import (
     decode_augment,
 )
@@ -95,7 +98,10 @@ class Trainer:
     draws batches, augmentation and dropout masks. ``batch_size`` is the
     global batch; with a ``mesh`` of W ranks (the dataset on this rank's
     device, the same seed on every rank) each rank computes B/W rows of
-    it, and ``B % W != 0`` raises.
+    it, and ``B % W != 0`` raises. ``learning_rate`` overrides the
+    registry recipe's. ``frontend_precision`` is the ``Frontend``'s
+    ('highest' or 'fastest'); 'auto' follows the compute dtype, 'fastest'
+    under bfloat16 (the JAX trainer's choice, loop.py:106-112, 169-176).
     """
 
     model_name: str
@@ -106,6 +112,8 @@ class Trainer:
     seed: int = 0
     compute_dtype: str = "auto"
     mesh: Optional[Mesh] = None
+    learning_rate: Optional[float] = None
+    frontend_precision: str = "auto"
 
     def __post_init__(self):
         self.device = self.dataset.device
@@ -121,6 +129,10 @@ class Trainer:
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         self.spec = get_spec(self.model_name)
+        if self.frontend_precision == "auto":
+            self.frontend_precision = (
+                "fastest" if self.compute_dtype == "bfloat16" else "highest")
+        self.frontend = Frontend(self.settings, self.frontend_precision)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed + 1)
         bg = self.dataset.background
@@ -132,15 +144,20 @@ class Trainer:
     # -- setup ------------------------------------------------------------
 
     def init_state(self) -> TrainState:
+        s = self.settings
         model, _ = build_model(
-            self.model_name, num_classes=self.settings.label_count,
-            generator=torch.Generator().manual_seed(self.seed))
+            self.model_name, num_classes=s.label_count,
+            generator=torch.Generator().manual_seed(self.seed),
+            spectrogram_length=s.spectrogram_length,
+            spectrogram_frequencies=s.spectrogram_frequencies)
         model.to(self.device)
         if self.mesh.size > 1:
             use_mesh(model, self.mesh)
             replicated(model, self.mesh)
-        optimizer = build_optimizer(self.spec.optimizer, model.parameters(),
-                                    self.spec.learning_rate)
+        optimizer = build_optimizer(
+            self.spec.optimizer, model.parameters(),
+            self.learning_rate or self.spec.learning_rate,
+            self.spec.momentum)
         return TrainState(model=model, optimizer=optimizer)
 
     def _autocast(self):
@@ -150,17 +167,23 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------
 
-    def draw_batch(self) -> Draws:
-        """Sample ids and augmentation parameters for one training batch."""
+    def draw_batch(self, pseudo_frequency: Optional[float] = None,
+                   generator: Optional[torch.Generator] = None) -> Draws:
+        """Sample ids and augmentation parameters for one training batch,
+        from ``generator`` (default: the trainer's); ``pseudo_frequency``
+        defaults to the augment config's."""
         ds = self.dataset
-        fids, labels, silence = ds.sample_train_ids(
-            self.generator, self.batch_size, self.augment.pseudo_frequency)
+        g = self.generator if generator is None else generator
+        if pseudo_frequency is None:
+            pseudo_frequency = self.augment.pseudo_frequency
+        fids, labels, silence = ds.sample_train_ids(g, self.batch_size,
+                                                    pseudo_frequency)
         shifts, fg_vol, bg_pos, bg_vol = draw_augment_params(
-            self.generator, silence, self.augment, ds.background,
-            self.batch_size, ds.desired_samples)
+            g, silence, self.augment, ds.background, self.batch_size,
+            ds.desired_samples)
         return Draws(fids, labels, silence, shifts, fg_vol, bg_pos, bg_vol)
 
-    def build_batch(self, d: Draws) -> torch.Tensor:
+    def build_batch(self, d: Draws):
         """Decode + augment (one kernel launch) + featurize this rank's
         rows of the (global) draws."""
         args = (self.dataset.wav_bank, self._bg_flat, d.file_ids, d.shifts,
@@ -169,7 +192,7 @@ class Trainer:
             wav = decode_augment_sharded(self.mesh, *args)
         else:
             wav = decode_augment(*args)
-        return features(wav, self.spec.representation)
+        return self.frontend.features(wav, self.spec.representation)
 
     def _update_step(self, state: TrainState, x: torch.Tensor,
                      labels: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -196,17 +219,66 @@ class Trainer:
             return {"loss": both[0], "categorical_accuracy": both[1]}
         return {"loss": loss.detach(), "categorical_accuracy": acc}
 
-    def train_step(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """One training step; updates ``state`` in place."""
-        d = self.draw_batch()
+    def train_step(self, state: TrainState,
+                   pseudo_frequency: Optional[float] = None,
+                   ) -> Dict[str, torch.Tensor]:
+        """One training step; updates ``state`` in place.
+        ``pseudo_frequency`` defaults to the augment config's."""
+        d = self.draw_batch(pseudo_frequency)
         return self._update_step(state, self.build_batch(d),
                                  shard_batch(d.labels, self.mesh))
 
-    def train_many(self, state: TrainState,
-                   steps: int) -> Dict[str, torch.Tensor]:
-        """``steps`` train steps; each metric stacked to shape [steps]."""
-        out = [self.train_step(state) for _ in range(steps)]
+    def train_many(self, state: TrainState, steps: int,
+                   pseudo_frequency: Optional[float] = None,
+                   ) -> Dict[str, torch.Tensor]:
+        """``steps`` train steps; each metric stacked to shape [steps].
+
+        The JAX ``train_many`` is one ``lax.scan`` program; here it is a
+        loop of eager steps, the same updates, until ROADMAP A5a replays
+        it as one CUDA graph.
+        """
+        out = [self.train_step(state, pseudo_frequency)
+               for _ in range(steps)]
         return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+    def recalibrate_batch_stats(self, state: TrainState,
+                                num_batches: int = 16,
+                                generator: Optional[torch.Generator] = None,
+                                pseudo_frequency: Optional[float] = None,
+                                ) -> TrainState:
+        """Set every BatchNorm's running statistics to the average of the
+        exact batch statistics of ``num_batches`` fresh training batches
+        (loop.py:518-576): the mean of the batch means and the mean of
+        the *biased* batch variances, as flax keeps them.
+
+        Each batch is drawn from ``generator`` (default: a fresh one
+        seeded with ``seed + 7``, so the training stream is untouched),
+        built as a train step builds it, and run through the model in
+        train mode in float32 (float64 if the model is), whatever the
+        compute dtype; the statistics are read straight from the
+        BatchNorm layers (``collect_batch_stats``), so no momentum update
+        is undone. Short schedules need this: at momentum 0.99 the
+        running statistics lag the data by ~100s of steps, and eval-mode
+        BN on them can collapse a deep trunk. Returns ``state``, updated
+        in place.
+        """
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(self.seed + 7)
+        model = state.model
+        model.train()
+        dtype = at_least_float32(next(model.parameters())).dtype
+        with torch.no_grad(), collect_batch_stats(model) as stats:
+            if not stats:
+                return state
+            for _ in range(num_batches):
+                d = self.draw_batch(pseudo_frequency, generator)
+                model(self.build_batch(d).to(dtype), generator)
+        for bn, batches in stats.items():
+            means, variances = zip(*batches)
+            bn.running_mean.copy_(torch.stack(means).mean(0))
+            bn.running_var.copy_(torch.stack(variances).mean(0))
+        return state
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, fids: torch.Tensor,
@@ -218,7 +290,7 @@ class Trainer:
         wav = augment_batch(self.dataset.decode(fids), silence)
         with self._autocast():
             logits = at_least_float32(
-                model(features(wav, self.spec.representation)))
+                model(self.frontend.features(wav, self.spec.representation)))
         conf = M.confusion_matrix(labels, logits.argmax(-1),
                                   self.settings.label_count)
         loss_sum = -torch.log_softmax(logits, dim=-1).gather(
@@ -260,3 +332,86 @@ class Trainer:
             all_reduce_(conf, self.mesh)
             all_reduce_(loss_sum, self.mesh)
         return conf.cpu().numpy(), float(loss_sum) / (steps * batch)
+
+    def fit(self, state: TrainState, epochs: int,
+            steps_per_epoch: Optional[int] = None,
+            callbacks: Iterable[Any] = (),
+            pseudo_schedule: Optional[Callable[[int], float]] = None,
+            log_every: int = 0,
+            bn_recalibration_batches: int = 0,
+            steps_per_dispatch: int = 1,
+            ) -> Tuple[TrainState, Dict[str, list]]:
+        """Epoch loop with a validation sweep after each epoch
+        (loop.py:667-745).
+
+        ``steps_per_epoch`` defaults to the training set over the batch
+        (at least 1). ``callbacks`` get ``on_epoch_end(epoch, state,
+        logs)``; one that returns a ``TrainState`` replaces the state.
+        ``pseudo_schedule`` maps the epoch to the pseudo frequency (see
+        ``reference_pseudo_schedule``). ``log_every`` > 0 prints the
+        metrics every that many steps. ``bn_recalibration_batches`` > 0
+        re-estimates the BatchNorm statistics before each sweep
+        (``recalibrate_batch_stats``, on a generator of its own per
+        epoch). ``steps_per_dispatch`` is the JAX trainer's steps per XLA
+        dispatch: here it runs that many eager steps per ``train_many``
+        call, the same updates, until ROADMAP A5a makes it one CUDA graph.
+
+        Returns the state and the history: per epoch ``loss`` and
+        ``categorical_accuracy`` (of the epoch's last step),
+        ``epoch_time_s`` and ``clips_per_sec`` (the training steps alone,
+        up to the read of the last step's metrics, which waits for the
+        device), ``val_loss``, ``val_categorical_accuracy`` and
+        ``confusion``.
+        """
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        if steps_per_epoch is None:
+            steps_per_epoch = max(
+                1, self.dataset.set_size("training") // self.batch_size)
+        history: Dict[str, list] = {}
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            pf = (pseudo_schedule(epoch) if pseudo_schedule
+                  else self.augment.pseudo_frequency)
+            step = 0
+            while step < steps_per_epoch:
+                chunk = min(steps_per_dispatch, steps_per_epoch - step)
+                ms = self.train_many(state, chunk, pf)
+                running = {k: v[-1] for k, v in ms.items()}
+                step += chunk
+                if log_every and (step % log_every < chunk):
+                    m = {k: float(v) for k, v in running.items()}
+                    print(f"  step {step}/{steps_per_epoch}: {m}")
+            logs: Dict[str, Any] = {k: float(v) for k, v in running.items()}
+            train_time = time.perf_counter() - t0
+            logs["epoch_time_s"] = train_time
+            logs["clips_per_sec"] = (steps_per_epoch * self.batch_size
+                                     / train_time)
+            if bn_recalibration_batches > 0:
+                g = torch.Generator(device=self.device)
+                g.manual_seed(self.seed + 100_000 + epoch)
+                state = self.recalibrate_batch_stats(
+                    state, bn_recalibration_batches, g, pf)
+            conf, val_loss = self.evaluate(state)
+            logs["val_loss"] = val_loss
+            logs["val_categorical_accuracy"] = M.accuracy(conf)
+            logs["confusion"] = conf
+            for cb in callbacks:
+                result = cb.on_epoch_end(epoch, state, logs)
+                if isinstance(result, TrainState):
+                    state = result
+            for k, v in logs.items():
+                history.setdefault(k, []).append(v)
+        return state, history
+
+
+def reference_pseudo_schedule(epoch: int) -> float:
+    """The pseudo-ratio schedule sketched in the reference (utils.py:41-49):
+    heavy pseudo mixing early, tapering as the model matures."""
+    if epoch <= 20:
+        return 1.0
+    if epoch <= 30:
+        return 0.7
+    if epoch <= 40:
+        return 0.4
+    return 0.2

@@ -1,11 +1,14 @@
 """Loss, optimizer and LR control (port of speech_recognition_tpu/train/optim.py).
 
-Ported: ``smooth_cross_entropy``, ``l2_kernel_penalty``, the Keras
-RMSprop recipe and the LR accessors. SGD, Adam and ReduceLROnPlateau
-come with ROADMAP A3.
+``smooth_cross_entropy``, ``l2_kernel_penalty``, the three Keras-recipe
+optimizers (SGD with momentum, Adam, RMSprop; each the same update as
+the optax transform the JAX package builds), the LR accessors and the
+host-side ``ReduceLROnPlateau`` controller.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,19 +42,30 @@ def l2_kernel_penalty(model: nn.Module, scale: float) -> torch.Tensor:
     return scale * sum(w.square().sum() for w in weights)
 
 
-def build_optimizer(name: str, params,
-                    learning_rate: float) -> torch.optim.Optimizer:
-    """Keras-equivalent optimizer over ``params``.
+def build_optimizer(name: str, params, learning_rate: float,
+                    momentum: float = 0.0) -> torch.optim.Optimizer:
+    """Keras-equivalent optimizer over ``params`` (optim.py:93-111).
 
-    ``rmsprop`` is Keras 2.1.2's: rho 0.9, eps 1e-8 added *outside* the
-    sqrt, zero-initialised accumulator — exactly torch's RMSprop with
-    ``alpha=0.9, eps=1e-8``. SGD with momentum and Adam come with
-    ROADMAP A3.
+    * ``sgd``: ``optax.sgd(lr, momentum=m or None)``, i.e. t <- m t + g,
+      p <- p - lr t; torch's SGD with dampening 0 and no Nesterov.
+    * ``adam``: Keras 2.1.2's b1 0.9, b2 0.999, eps 1e-8 with optax's
+      bias correction, eps added outside the sqrt of the corrected second
+      moment; torch's Adam computes the same update.
+    * ``rmsprop``: Keras 2.1.2's, rho 0.9, eps 1e-8 added *outside* the
+      sqrt, zero-initialised accumulator; exactly torch's RMSprop with
+      ``alpha=0.9, eps=1e-8``.
     """
-    if name.lower() != "rmsprop":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP A3)")
-    return torch.optim.RMSprop(params, lr=learning_rate, alpha=0.9, eps=1e-8)
+    name = name.lower()
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
+                               dampening=0.0, nesterov=False)
+    if name == "adam":
+        return torch.optim.Adam(params, lr=learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
+    if name == "rmsprop":
+        return torch.optim.RMSprop(params, lr=learning_rate, alpha=0.9,
+                                   eps=1e-8)
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
@@ -62,3 +76,44 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Set the learning rate of every param group, in place."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+class ReduceLROnPlateau:
+    """Host-side LR controller (optim.py:125-163; keras ReduceLROnPlateau
+    as train.py:62-63 uses it: monitor val_categorical_accuracy, mode
+    max, factor 0.5, patience 4, min_lr 1e-5)."""
+
+    def __init__(self, factor: float = 0.5, patience: int = 4,
+                 min_lr: float = 1e-5, mode: str = "max",
+                 min_delta: float = 1e-4, verbose: bool = True):
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.mode = mode
+        self.min_delta = min_delta
+        self.verbose = verbose
+        self.best: Optional[float] = None
+        self.wait = 0
+
+    def _improved(self, value: float) -> bool:
+        if self.best is None:
+            return True
+        if self.mode == "max":
+            return value > self.best + self.min_delta
+        return value < self.best - self.min_delta
+
+    def update(self, value: float, current_lr: float) -> float:
+        """Feed the monitored metric; returns the (possibly reduced) LR."""
+        if self._improved(value):
+            self.best = value
+            self.wait = 0
+            return current_lr
+        self.wait += 1
+        if self.wait >= self.patience:
+            new_lr = max(current_lr * self.factor, self.min_lr)
+            self.wait = 0
+            if self.verbose and new_lr < current_lr:
+                print(f"ReduceLROnPlateau: lr {current_lr:.2e} "
+                      f"-> {new_lr:.2e}")
+            return new_lr
+        return current_lr

@@ -27,7 +27,7 @@ from speech_recognition_tpu_torch.data.device_bank import (
     synthetic_device_dataset,
 )
 from speech_recognition_tpu_torch.ops import augment as aug
-from speech_recognition_tpu_torch.ops.frontend import features
+from speech_recognition_tpu_torch.ops.frontend import Frontend
 
 torch.set_num_threads(1)
 
@@ -213,6 +213,8 @@ def test_sampler_pseudo_frequency():
 
 def test_frontend_raw_only():
     wav = torch.zeros(2, 16)
-    assert features(wav, "raw") is wav
-    with pytest.raises(NotImplementedError, match="A7"):
-        features(wav, "mfcc")
+    front = Frontend(config.prepare_model_settings(12))
+    assert front.features(wav) is wav
+    assert front.features(wav, "raw") is wav
+    with pytest.raises(ValueError, match="unknown representation"):
+        front.features(wav, "wav")

@@ -682,3 +682,68 @@ def test_separable_mma_fragment_layout_16x16x16(cuda, dtype, batch, stride,
     assert got[0].shape == (batch, 16, 16) and want[0].abs().max() > 0
     for name, gv, wv in zip(("y", "s1", "s2"), got, want):
         torch.testing.assert_close(gv, wv, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("precision", ["highest", "fastest"])
+def test_frontend_on_card_matches_cpu(cuda, precision):
+    """The frontend's products on the card against the CPU: f32 with TF32
+    off to 1e-5 of max |spectrogram| and 1e-4 of max |mfcc|; 'fastest'
+    (TF32) to 1e-2 of them, the JAX DEFAULT precision's own error, with
+    the process's TF32 flag left as it was."""
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
+
+    g = np.random.default_rng(8)
+    t = np.arange(T) / T
+    wav = torch.from_numpy((np.sin(2 * np.pi * 440 * t)[None]
+                            * g.uniform(0.1, 0.5, (6, 1))
+                            + g.normal(0, 0.05, (6, T))).astype(np.float32))
+    ref = Frontend(prepare_model_settings(12))
+    front = Frontend(prepare_model_settings(12), precision)
+    tol = {"highest": (1e-5, 1e-4), "fastest": (1e-2, 1e-2)}[precision]
+    for name, rtol in zip(("spectrogram", "mfcc"), tol):
+        want = getattr(ref, name)(wav)
+        got = getattr(front, name)(wav.to(cuda)).cpu()
+        assert (got - want).abs().max() <= rtol * want.abs().max(), name
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_fit_on_card_launches_decode_augment_per_step_and_bn_batch(
+        cuda, tmp_path):
+    """Two epochs of conv_1d_spec in bf16 on a small hard corpus: one
+    decode+augment launch per train step and per BN re-estimation batch,
+    finite history, the confusion matrix over whole batches."""
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.data.device_bank import (
+        build_device_dataset,
+    )
+    from speech_recognition_tpu_torch.data.hard_corpus import (
+        WANTED, build_hard_corpus,
+    )
+    from speech_recognition_tpu_torch.data.index import build_dataset_index
+    from speech_recognition_tpu_torch.train.loop import Trainer
+
+    build_hard_corpus(tmp_path, clips_per_word=20, seed=0)
+    settings = prepare_model_settings(12, output_representation="spec")
+    index = build_dataset_index([str(tmp_path)], 13.0, 60.0, WANTED, 20.0,
+                                0.0)
+    ds = build_device_dataset(index, settings, cuda)
+    trainer = Trainer("conv_1d_spec", settings, ds, batch_size=32)
+    assert trainer.compute_dtype == "bfloat16"
+    assert trainer.frontend.precision == "fastest"
+    state = trainer.init_state()
+    K.LAUNCHES = 0
+    state, history = trainer.fit(state, epochs=2, bn_recalibration_batches=3,
+                                 steps_per_dispatch=4)
+    steps = ds.set_size("training") // 32
+    assert K.LAUNCHES == 2 * (steps + 3)
+    assert state.step == 2 * steps
+    for k, v in history.items():
+        if k == "confusion":
+            assert all(c.sum() == ds.set_size("validation") // 32 * 32
+                       for c in v)
+        else:
+            assert np.isfinite(v).all(), k
+    bn = state.model.blocks[0].bn
+    assert bn.running_mean.dtype == torch.float32
+    assert torch.isfinite(bn.running_var).all()

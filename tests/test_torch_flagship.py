@@ -66,7 +66,7 @@ def test_param_count_golden():
 
 def test_other_models_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="A8"):
-        build_model("conv_1d_spec")
+        build_model("conv_2d")
 
 
 def test_init_is_seeded_and_glorot_uniform():

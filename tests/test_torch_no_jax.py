@@ -28,8 +28,13 @@ for name in ("jax", "flax", "optax", "speech_recognition_tpu"):
 import torch
 torch.set_num_threads(1)
 import speech_recognition_tpu_torch as pkg
+walked = set()
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
+    walked.add(info.name[len(pkg.__name__) + 1:])
+new = {"bench", "labels", "data.wav", "data.index", "data.hard_corpus",
+       "ops.frontend", "train.checkpoint", "tools.calibrate_accuracy"}
+assert new <= walked, new - walked
 import chip_smoke  # noqa: F401
 from speech_recognition_tpu_torch.config import prepare_model_settings
 from speech_recognition_tpu_torch.data.device_bank import (
