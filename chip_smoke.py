@@ -58,9 +58,28 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   ``conv_1d_spec`` at batch 128 in bf16, BN re-estimation over 16
   batches, ReduceLROnPlateau) for seeds 0 and 1; prints each epoch's
   validation accuracy and clips/s and each record, checks that
-  decode+augment launched once per train step and per BN batch, and
-  fails if the seed mean of ``val_acc_best`` is below 0.8309 (the JAX
-  band's mean less two standard deviations);
+  decode+augment launched once per train step and per BN batch and holds
+  it against its plain version on a batch drawn from the trainer (to the
+  last bit), and fails if the seed mean of ``val_acc_best`` is below
+  0.8309 (the JAX band's mean less two standard deviations);
+- the serving path (``[infer]``): holds the TTA ``Predictor`` of the
+  flagship and ``conv_1d_spec``, in its three modes, and ``time_stretch``
+  on the card against the CPU (f32; the Predictor turns TF32 off);
+  trains ``conv_1d_spec`` by ``[fit]``'s recipe (seed 0) with the
+  classes in the submission's order and a best-only checkpoint, gathers
+  the validation clips into a flat test directory and runs
+  ``tools.create_tta_set`` and ``tools.make_submission`` without TTA,
+  with TTA and with speed TTA; checks the CSVs and memmaps (rows in
+  sorted order, sums, argmax labels, the memmap's truncation), the no-TTA
+  probabilities against the Predictor on the same batches, and prints
+  each mode's accuracy on these labelled clips; runs
+  ``tools.pseudo_labels`` threshold, agreement and vote, retrains a few
+  epochs on train plus the pseudo-labels and checks that pseudo rows
+  were drawn and that decode+augment launched once per train step and
+  per BN batch, and holds it against its plain version on the draw with
+  the most pseudo rows (to the last bit); then runs
+  ``tools.bench_infer`` on the flagship at batch 384 over 7,777 WAVs,
+  with TTA and without, and echoes its line;
 - the bench (``[bench]``): runs ``python -m
   speech_recognition_tpu_torch.bench`` in a child at the full-corpus
   scale (3 reps of 100 steps, no accuracy signal), checks that its first
@@ -104,9 +123,11 @@ NUM_BACKGROUND, BACKGROUND_LEN = 6, 16000 * 60
 # time: equal up to the sign of an exact zero
 KERNEL_ATOL = 0.0
 LOGITS_ATOL = 1e-3
-# decode+augment's device time: launches per reading, and the scratch
-# write (more than the 50 MB L2) that makes a reading cold
+# decode+augment's device time: launches per reading, traces taken until
+# one holds every launch, and the scratch write (more than the 50 MB L2)
+# that makes a reading cold
 DEVICE_ITERS = 50
+DEVICE_TRACES = 3
 L2_FLUSH_BYTES = 64 << 20
 DECODE_KERNEL = r"decode_augment_kernel"
 KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd")
@@ -173,6 +194,23 @@ SPEC_LOGITS_RTOL = 1e-3
 BENCH_ENV = {"BENCH_SCALE_ORDER": "full_corpus", "BENCH_SMALL": "1",
              "BENCH_SPD": "100", "BENCH_SKIP_ACC": "1"}
 BENCH_TIMEOUT_S = 600
+# the [infer] phase. The Predictor, card against CPU in f32 with TF32 off:
+# probabilities, absolute; the time stretch relative to max |CPU|, at the
+# CPU tests' end-to-end bounds (broadband noise has no silent bins; on
+# tonal signals near-silent bins carry float32 phase noise that the
+# accumulation keeps)
+INFER_PROB_ATOL = 1e-4
+STRETCH_RTOL = {"noise": 5e-5, "chirp": 0.15, "tones": 0.15, "burst": 0.15}
+STRETCH_RATES = (0.9, 1.1, 0.8)
+# the submission chain on the hard corpus's 240 validation clips: the
+# batch (one full batch and a partial tail), the no-TTA probabilities
+# against the Predictor on the same decoded batches, and the retrain on
+# train plus the pseudo-labels
+INFER_BATCH = 128
+INFER_DIRECT_ATOL = 1e-6
+RETRAIN_EPOCHS, RETRAIN_PSEUDO_FREQUENCY = 3, 0.5
+# tools.bench_infer on the flagship: 20 batches of 384 and a tail of 97
+BENCH_INFER_FILES = 7_777
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -227,28 +265,33 @@ def device_ms(fn, pattern: str, flush=None, iters: int = DEVICE_ITERS):
     """Mean device time, ms, of the kernels whose name matches the regex
     ``pattern`` in a ``torch.profiler`` trace of ``iters`` calls of
     ``fn`` (after one untimed call), each call preceded by ``flush()``
-    when one is given (its kernels must not match). Raises unless exactly
-    one matching kernel ran per call."""
+    when one is given (its kernels must not match). Only a trace with
+    exactly one matching kernel per call is read: the profiler can lose
+    a record of back-to-back launches (one of 50 on a [dp] rank sharing
+    the card, NVIDIA H100 80GB HBM3), so a trace that lacks one is taken
+    again, and the call raises if none of ``DEVICE_TRACES`` is whole."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events() if e.device_type == cuda
-               and not e.is_user_annotation]
-    hits = [e for e in kernels if re.search(pattern, e.name)]
-    if len(hits) != iters:
-        raise RuntimeError(f"profiler: {len(hits)} kernels match {pattern!r} "
-                           f"in {iters} calls; seen "
-                           f"{sorted({e.name[:80] for e in kernels})}")
-    return sum(e.time_range.end - e.time_range.start for e in hits) \
-        / iters / 1e3
+    for _ in range(DEVICE_TRACES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == cuda
+                   and not e.is_user_annotation]
+        hits = [e for e in kernels if re.search(pattern, e.name)]
+        if len(hits) == iters:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in hits) / iters / 1e3
+    raise RuntimeError(f"profiler: {len(hits)} kernels match {pattern!r} "
+                       f"in {iters} calls, in each of {DEVICE_TRACES} "
+                       f"traces; seen "
+                       f"{sorted({e.name[:80] for e in kernels})}")
 
 
 def decode_augment_timings(call, plain, shape, device) -> dict:
@@ -1311,27 +1354,63 @@ def frontend_card_vs_cpu(device, wav_cpu: torch.Tensor, settings) -> dict:
     return errs
 
 
+def with_batch_stats(model, x_cpu: torch.Tensor):
+    """``model`` in eval mode with every BN's running statistics set to
+    the batch statistics of ``x_cpu`` (one train-mode pass on the CPU at
+    momentum 0), so that eval-mode activations keep their scale."""
+    from speech_recognition_tpu_torch.models.layers import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    momenta = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.momentum = 0.0
+    with torch.no_grad():
+        model.train()(x_cpu, torch.Generator())
+    for bn, m in zip(bns, momenta):
+        bn.momentum = m
+    return model.eval()
+
+
 def spec_logits_card_vs_cpu(device, x_cpu: torch.Tensor) -> float:
     """Max abs error of ``conv_1d_spec``'s eval logits on the card against
     the CPU over the max |logit| (f32, TF32 off), with the BN running
     statistics set to the batch's (one train-mode pass at momentum 0)."""
-    from speech_recognition_tpu_torch.models.layers import BatchNorm
     from speech_recognition_tpu_torch.models.zoo import build_model
 
     model, _ = build_model(FIT_MODEL, num_classes=12,
                            generator=torch.Generator().manual_seed(1))
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.momentum = 0.0
+    model = with_batch_stats(model, x_cpu)
     with torch.no_grad():
-        model.train()(x_cpu, torch.Generator())
-        model.eval()
         want = model(x_cpu)
         got = copy.deepcopy(model).to(device)(x_cpu.to(device)).cpu()
     if got.shape != (x_cpu.shape[0], 12) or not torch.isfinite(got).all():
         raise RuntimeError(f"conv_1d_spec logits {tuple(got.shape)} or "
                            f"non-finite values")
     return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_augment_on_path(ds, d, label: str) -> float:
+    """decode+augment's kernel against its plain version on one batch of a
+    training path: ``d`` are the trainer's draws, on the bank and the
+    background of its dataset ``ds``; to the last bit. Called after the
+    path's count was read, so these launches stay out of it."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+
+    args = (ds.wav_bank, ds.background.flat, d.file_ids, d.shifts,
+            d.fg_vol, d.bg_pos, d.bg_vol)
+    got = K.decode_augment(*args)
+    want = K.decode_augment_reference(*args)
+    if got.shape != (len(d.file_ids), ds.desired_samples) \
+            or not torch.isfinite(got).all():
+        raise RuntimeError(f"{label} decode_augment {tuple(got.shape)} or "
+                           f"non-finite values")
+    err = float((got - want).abs().max())
+    if err > KERNEL_ATOL:
+        raise RuntimeError(f"{label} decode_augment kernel vs plain max abs "
+                           f"err {err} > {KERNEL_ATOL}")
+    return err
 
 
 def fit_phase(device, card: str) -> int:
@@ -1402,6 +1481,8 @@ def fit_phase(device, card: str) -> int:
             record, trainer, history = C.calibrate(args, corpus_root=root)
             seed_launches = K.LAUNCHES
             seed_s = time.perf_counter() - t0
+            da_err = decode_augment_on_path(
+                trainer.dataset, trainer.draw_batch(), f"[fit] seed {seed}")
             steps = trainer.dataset.set_size("training") // args.batch_size
             expected = args.epochs * (steps + args.bn_recalibration_batches)
             for epoch, (acc, cps) in enumerate(zip(
@@ -1421,7 +1502,9 @@ def fit_phase(device, card: str) -> int:
                 f"re-estimation over {args.bn_recalibration_batches} "
                 f"batches per epoch, in {seed_s:.1f} s; decode_augment "
                 f"launches {seed_launches} (expected {expected}: one per "
-                f"train step and per BN batch) | {card}")
+                f"train step and per BN batch); kernel vs plain on a drawn "
+                f"batch [{args.batch_size}, {T}]: max abs err {da_err:.3g} "
+                f"(tol {KERNEL_ATOL}) | {card}")
             if seed_launches != expected:
                 raise RuntimeError(f"[fit] {seed_launches} decode_augment "
                                    f"launches, expected {expected}")
@@ -1433,6 +1516,393 @@ def fit_phase(device, card: str) -> int:
         f"{FIT_ACC_GATE}); phase {time.perf_counter() - phase_t0:.1f} s")
     if mean < FIT_ACC_GATE:
         raise RuntimeError(f"[fit] seed mean {mean:.4f} < {FIT_ACC_GATE}")
+    return launches
+
+
+def stretch_signals() -> dict:
+    """1 s test signals of the CPU stretch tests: a chirp, two tones, a
+    tone burst and broadband noise (numpy seed 7)."""
+    rng = np.random.default_rng(7)
+    t = np.arange(T) / T
+    burst = np.zeros(T)
+    burst[4000:9000] = np.sin(2 * np.pi * 650 * t[:5000])
+    return {k: torch.from_numpy(v.astype(np.float32))[None] for k, v in {
+        "chirp": np.sin(2 * np.pi * (300 + 400 * t) * t),
+        "tones": (0.6 * np.sin(2 * np.pi * 440 * t)
+                  + 0.3 * np.sin(2 * np.pi * 987 * t + 1.3)),
+        "noise": rng.normal(0, 0.3, T),
+        "burst": burst}.items()}
+
+
+def infer_card_vs_cpu(device, wav: torch.Tensor, card: str) -> None:
+    """[infer] (a): the Predictor of both ported models in the three TTA
+    modes, and ``time_stretch``, on the card against the CPU, in f32 with
+    TF32 off (the Predictor's own flags, as it serves). ``wav`` are CPU
+    clips; the models have random weights from a seed and the BN
+    statistics of these clips."""
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.infer.tta import Predictor, TTAConfig
+    from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
+    from speech_recognition_tpu_torch.ops.stretch import (
+        slow_variant_keep_tail, time_stretch,
+    )
+
+    cpu = torch.device("cpu")
+    slow = slow_variant_keep_tail(wav)
+    modes = {"no TTA": TTAConfig(use_tta=False), "TTA": TTAConfig(),
+             "speed TTA": TTAConfig(use_speed_tta=True)}
+    errs = {}
+    for name, rep in ((MODEL, "raw"), (FIT_MODEL, "spec")):
+        settings = prepare_model_settings(12, output_representation=rep)
+        model, _ = build_model(name, num_classes=12,
+                               generator=torch.Generator().manual_seed(1))
+        model = with_batch_stats(model, Frontend(settings).features(wav,
+                                                                    rep))
+        for mode, tta in modes.items():
+            want = Predictor(copy.deepcopy(model), settings, rep, tta,
+                             cpu).predict(wav, slow)
+            got = Predictor(copy.deepcopy(model), settings, rep, tta,
+                            device).predict(wav, slow).cpu()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise RuntimeError(f"[infer] {name} {mode}: "
+                                   f"{tuple(got.shape)} or non-finite")
+            errs[f"{name} {mode}"] = float((got - want).abs().max())
+    log(f"[infer] Predictor f32 (it turns TF32 off), card vs CPU on "
+        f"{len(wav)} corpus clips, max abs err of the probabilities (tol "
+        f"{INFER_PROB_ATOL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= INFER_PROB_ATOL}
+    if bad:
+        raise RuntimeError(f"[infer] Predictor card vs CPU: {bad}")
+    errs = {}
+    for name, y in stretch_signals().items():
+        for rate in STRETCH_RATES:
+            want = time_stretch(y, rate)
+            got = time_stretch(y.to(device), rate).cpu()
+            errs[f"{name}@{rate}"] = float((got - want).abs().max()
+                                           / want.abs().max())
+    log("[infer] time_stretch, card vs CPU, max abs err / max |CPU| (tol "
+        "5e-05 noise, 0.15 tonal): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" | {card}")
+    bad = {k: v for k, v in errs.items()
+           if not v <= STRETCH_RTOL[k.split("@")[0]]}
+    if bad:
+        raise RuntimeError(f"[infer] time_stretch card vs CPU: {bad}")
+
+
+def run_tool(tool, argv) -> object:
+    """``tool.main(argv)`` in this process, its stdout echoed under
+    ``[infer] |``; returns what it returned."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = tool.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"[infer] | {line}")
+    return result
+
+
+def check_submission(paths: dict, names: list, int2label, mode: str):
+    """The files of one ``tools.make_submission`` run: one row per clip in
+    sorted order in each CSV, probabilities summing to 1 (0.6 with speed
+    TTA: the reference's 6-term sum over 10), each label the argmax of
+    its probabilities, the memmap the truncation of probs x 255 in
+    AUDIO_NAMES order. Returns (probs [N, 12], wanted labels)."""
+    import csv
+
+    from speech_recognition_tpu_torch.infer.submission import (
+        to_audio_names_order,
+    )
+    from speech_recognition_tpu_torch.labels import (
+        get_classes, map_to_valid, map_to_wanted, prepare_words_list,
+    )
+
+    def rows(kind):
+        with open(paths[kind], newline="") as f:
+            return list(csv.DictReader(f))
+
+    wanted, every, prob_rows = rows("wanted"), rows("all"), rows("probs")
+    for kind, r in (("wanted", wanted), ("all", every), ("probs", prob_rows)):
+        if [x["fname"] for x in r] != names:
+            raise RuntimeError(f"[infer] {mode}: {kind} CSV rows are not "
+                               f"the {len(names)} clips in sorted order")
+    probs = np.array([[float(x[int2label[i]]) for i in range(12)]
+                      for x in prob_rows], np.float32)
+    total = 0.6 if mode == "speed TTA" else 1.0
+    if not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - total).max() > 1e-5:
+        raise RuntimeError(f"[infer] {mode}: probabilities do not sum to "
+                           f"{total}")
+    top = [map_to_valid(int2label[int(i)]) for i in probs.argmax(1)]
+    words = prepare_words_list(get_classes(wanted_only=True))
+    if [x["label"] for x in every] != top or [x["label"] for x in wanted] \
+            != [map_to_wanted(t, words) for t in top]:
+        raise RuntimeError(f"[infer] {mode}: a label is not the argmax")
+    mm = np.fromfile(paths["memmap"], np.uint8).reshape(len(names), 12)
+    if not np.array_equal(mm, (to_audio_names_order(probs, int2label)
+                               * 255).astype(np.uint8)):
+        raise RuntimeError(f"[infer] {mode}: memmap is not probs x 255 in "
+                           f"AUDIO_NAMES order")
+    return probs, [x["label"] for x in wanted]
+
+
+def serving_chain(device, td, root, card: str) -> int:
+    """[infer] (b): train ``conv_1d_spec`` by [fit]'s recipe (seed 0),
+    with the classes in the submission's order and a best-only
+    checkpoint, gather the validation clips into a flat test
+    directory, run the TTA set, the three submissions, the pseudo-label
+    tools and the vote through their entry points, check the files, then
+    retrain on train plus the pseudo-labels. Returns decode+augment's
+    launches in the retrain."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from speech_recognition_tpu_torch.config import (
+        AugmentConfig, prepare_model_settings,
+    )
+    from speech_recognition_tpu_torch.data.device_bank import (
+        build_device_dataset,
+    )
+    from speech_recognition_tpu_torch.data.index import build_dataset_index
+    from speech_recognition_tpu_torch.data.wav import decode_batch_int16
+    from speech_recognition_tpu_torch.infer.tta import Predictor, TTAConfig
+    from speech_recognition_tpu_torch.labels import (
+        SILENCE_LABEL, get_classes, get_int2label,
+    )
+    from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.tools import calibrate_accuracy as C
+    from speech_recognition_tpu_torch.tools import (
+        create_tta_set, make_submission, pseudo_labels,
+    )
+    from speech_recognition_tpu_torch.train.checkpoint import (
+        BestCheckpoint, PlateauCallback, restore_checkpoint,
+    )
+    from speech_recognition_tpu_torch.train.loop import Trainer
+    from speech_recognition_tpu_torch.train.optim import ReduceLROnPlateau
+
+    td = Path(td)
+    wanted = get_classes(wanted_only=True)
+    int2label = get_int2label(wanted_only=True)
+    settings = prepare_model_settings(12, output_representation="spec")
+    args = C.parse_args(FIT_ARGS)
+    # the calibration's split and recipe (batch, epochs, plateau, BN
+    # re-estimation), in bf16
+    index_args = dict(silence_percentage=13.0, unknown_percentage=60.0,
+                      wanted_words=wanted, validation_percentage=20.0,
+                      testing_percentage=0.0)
+    index = build_dataset_index([str(root)], **index_args)
+    t0 = time.perf_counter()
+    trainer = Trainer(FIT_MODEL, settings,
+                      build_device_dataset(index, settings, device),
+                      augment=AugmentConfig(), batch_size=args.batch_size,
+                      seed=0, compute_dtype="bfloat16")
+    _, history = trainer.fit(
+        trainer.init_state(), epochs=args.epochs,
+        callbacks=[PlateauCallback(ReduceLROnPlateau(
+            factor=0.5, patience=4, min_lr=1e-5, mode="max")),
+            BestCheckpoint(str(td / "ckpt"), verbose=False)],
+        bn_recalibration_batches=args.bn_recalibration_batches,
+        steps_per_dispatch=8)
+    ckpt = (td / "ckpt" / "BEST").read_text()
+    log(f"[infer] {FIT_MODEL} trained by [fit]'s recipe (seed 0, classes "
+        f"in the submission's order) in {time.perf_counter() - t0:.1f} s: "
+        f"val_acc_best {max(history['val_categorical_accuracy']):.4f}; "
+        f"checkpoint {os.path.basename(ckpt)}")
+    del trainer
+
+    # the validation clips (every word file the sweep saw, no silence
+    # entries) as a flat test directory, names without _nohash_ so that
+    # their pseudo-labels land in the pseudo partition
+    files = sorted({e.file: e.label for e in index.data_index["validation"]
+                    if e.label != SILENCE_LABEL}.items())
+    test_dir, tta_dir = td / "test", td / "tta"
+    test_dir.mkdir()
+    names, truth = [], []
+    for i, (path, label) in enumerate(files):
+        names.append(f"clip_{i:05d}.wav")
+        truth.append(label if label in wanted else "unknown")
+        shutil.copy(path, test_dir / names[-1])
+
+    t0 = time.perf_counter()
+    run_tool(create_tta_set, ["--test_dir", str(test_dir), "--out_dir",
+                              str(tta_dir), "--device", device.type])
+    common = ["--checkpoint", ckpt, "--model", FIT_MODEL, "--test_dir",
+              str(test_dir), "--output_representation", "spec",
+              "--window_size_ms", "30", "--window_stride_ms", "10",
+              "--wanted_only", "--batch_size", str(INFER_BATCH),
+              "--device", device.type]
+    subs, probs, accs = {}, {}, {}
+    for mode, extra in (("no TTA", ["--no_tta"]), ("TTA", []),
+                        ("speed TTA", ["--tta_dir", str(tta_dir)])):
+        prefix = str(td / f"sub_{mode.replace(' ', '_')}")
+        subs[mode] = run_tool(make_submission,
+                              common + extra + ["--out_prefix", prefix])
+        probs[mode], labels = check_submission(subs[mode], names, int2label,
+                                               mode)
+        accs[mode] = float(np.mean([a == b for a, b in zip(labels, truth)]))
+    chain_s = time.perf_counter() - t0
+
+    # the no-TTA probabilities against the Predictor on the same batches
+    model, _ = build_model(FIT_MODEL, num_classes=12)
+    model.load_state_dict(torch.load(ckpt, map_location="cpu",
+                                     weights_only=True)["model"])
+    pred = Predictor(model, settings, "spec", TTAConfig(use_tta=False),
+                     device)
+    n = len(names)
+    rows = np.zeros((-(-n // INFER_BATCH) * INFER_BATCH, T), np.int16)
+    decode_batch_int16([str(test_dir / x) for x in names], T, out=rows)
+    direct = torch.cat([pred.predict(torch.from_numpy(
+        rows[s:s + INFER_BATCH])).cpu() for s in range(0, len(rows),
+                                                         INFER_BATCH)])[:n]
+    direct_err = float(np.abs(direct.numpy() - probs["no TTA"]).max())
+    log(f"[infer] submissions over {n} validation clips (batch "
+        f"{INFER_BATCH}: {n // INFER_BATCH} full and a tail of "
+        f"{n % INFER_BATCH}) in {chain_s:.1f} s with the TTA set: rows, "
+        f"sums, argmax labels and memmaps checked; no-TTA probabilities "
+        f"against the Predictor on the same batches: max abs err "
+        f"{direct_err:.3g} (tol {INFER_DIRECT_ATOL}); accuracy on these "
+        f"labelled clips: " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in accs.items())
+        + f" | {card}")
+    if not direct_err <= INFER_DIRECT_ATOL:
+        raise RuntimeError(f"[infer] no-TTA probabilities vs the Predictor: "
+                           f"{direct_err}")
+
+    wanted_csvs = [subs[m]["wanted"] for m in subs]
+    pseudo_dir = td / "pseudo"
+    stats = run_tool(pseudo_labels, [
+        "threshold", "--submission_csv", subs["TTA"]["wanted"], "--memmap",
+        subs["TTA"]["memmap"], "--test_dir", str(test_dir), "--out_dir",
+        str(pseudo_dir)])
+    agreed = run_tool(pseudo_labels, [
+        "agreement", "--submissions", *wanted_csvs, "--test_dir",
+        str(test_dir), "--out_dir", str(td / "agree")])
+    clear, total = run_tool(pseudo_labels, [
+        "vote", "--submissions", *wanted_csvs, "--out",
+        str(td / "vote.csv")])
+    if stats["created"] == 0 or total != n or not 0 < agreed <= n:
+        raise RuntimeError(f"[infer] pseudo-labels: threshold {stats}, "
+                           f"agreement {agreed}, vote {clear}/{total}")
+
+    # retrain from the checkpoint on train plus the threshold pseudo-labels
+    index = build_dataset_index([str(root), str(pseudo_dir)], **index_args)
+    ds = build_device_dataset(index, settings, device)
+    trainer = Trainer(
+        FIT_MODEL, settings, ds,
+        augment=AugmentConfig(pseudo_frequency=RETRAIN_PSEUDO_FREQUENCY),
+        batch_size=args.batch_size, seed=0, compute_dtype="bfloat16")
+    state = restore_checkpoint(ckpt, trainer.init_state())
+    pseudo_ids = ds.partitions["pseudo"].file_ids
+    draws, drawn = [], []
+    draw = trainer.draw_batch
+
+    def counting_draw(*a, **kw):
+        d = draw(*a, **kw)
+        draws.append(d)
+        drawn.append(torch.isin(d.file_ids, pseudo_ids).sum())
+        return d
+
+    trainer.draw_batch = counting_draw
+    steps = ds.set_size("training") // args.batch_size
+    K.LAUNCHES = 0
+    state, history = trainer.fit(
+        state, epochs=RETRAIN_EPOCHS,
+        bn_recalibration_batches=args.bn_recalibration_batches,
+        steps_per_dispatch=8)
+    launches = K.LAUNCHES
+    expected = RETRAIN_EPOCHS * (steps + args.bn_recalibration_batches)
+    drawn = torch.stack(drawn)
+    pseudo_rows = int(drawn.sum())
+    most = int(drawn.argmax())
+    da_err = decode_augment_on_path(ds, draws[most], "[infer] retrain")
+    losses = history["loss"] + history["val_loss"]
+    log(f"[infer] retrain: {RETRAIN_EPOCHS} epochs of {steps} steps at "
+        f"batch {args.batch_size} on {ds.set_size('training')} training "
+        f"and {ds.set_size('pseudo')} pseudo entries (pseudo frequency "
+        f"{RETRAIN_PSEUDO_FREQUENCY}): {pseudo_rows} pseudo rows drawn, "
+        f"losses {[round(v, 4) for v in history['loss']]}, val acc "
+        f"{[round(v, 4) for v in history['val_categorical_accuracy']]}; "
+        f"decode_augment launches {launches} (expected {expected}: one per "
+        f"train step and per BN batch); kernel vs plain on the draw with "
+        f"the most pseudo rows ({int(drawn[most])} of {args.batch_size}, "
+        f"[{args.batch_size}, {T}]): max abs err {da_err:.3g} (tol "
+        f"{KERNEL_ATOL})")
+    if launches != expected or pseudo_rows == 0 \
+            or not np.isfinite(losses).all():
+        raise RuntimeError(f"[infer] retrain: launches {launches} of "
+                           f"{expected}, pseudo rows {pseudo_rows}, losses "
+                           f"{losses}")
+    return launches
+
+
+def bench_infer_runs(td, card: str) -> None:
+    """[infer] (c): ``tools.bench_infer`` on the flagship at batch 384,
+    random weights, over a tree of 7,777 WAVs, with TTA and without; its
+    JSON line and diagnostics echoed."""
+    import contextlib
+    import io
+    import math
+
+    from speech_recognition_tpu_torch.tools import bench_infer
+
+    for extra in ([], ["--no_tta"]):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            bench_infer.main(["--num_files", str(BENCH_INFER_FILES),
+                              "--keep_dir", str(td), "--device", "cuda"]
+                             + extra)
+        for line in err.getvalue().splitlines() + out.getvalue().splitlines():
+            log(f"[infer] bench_infer{' ' + extra[0] if extra else ''}: "
+                f"{line}")
+        line = json.loads(out.getvalue().splitlines()[-1])
+        values = [line["end_to_end_clips_per_sec"],
+                  line["device_clips_per_sec"]]
+        if next(iter(line)) != "end_to_end_clips_per_sec" or not all(
+                math.isfinite(v) and v > 0 for v in values):
+            raise RuntimeError(f"[infer] bench_infer line: {line}")
+        log(f"[infer] bench_infer {'without' if extra else 'with'} TTA: "
+            f"device {line['device_clips_per_sec']:.1f} clips/s, end to end "
+            f"{line['end_to_end_clips_per_sec']:.1f} clips/s ("
+            f"{time.perf_counter() - t0:.1f} s) | {card}")
+
+
+def infer_phase(device, card: str) -> int:
+    """The [infer] phase: (a) the Predictor and the stretch on the card
+    against the CPU, (b) the serving chain on the hard corpus and the
+    retrain on its pseudo-labels, (c) ``tools.bench_infer``. Returns
+    decode+augment's launches in the retrain."""
+    import tempfile
+    from pathlib import Path
+
+    from speech_recognition_tpu_torch.data.hard_corpus import (
+        build_hard_corpus,
+    )
+    from speech_recognition_tpu_torch.data.wav import load_wav_file
+    from speech_recognition_tpu_torch.tools import calibrate_accuracy as C
+
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="srt_torch_infer_") as td:
+        args = C.parse_args(FIT_ARGS)
+        root = Path(td) / "corpus" / "audio"
+        build_hard_corpus(root, clips_per_word=args.clips_per_word,
+                          seed=args.corpus_seed,
+                          snr_db_range=(args.snr_lo, args.snr_hi),
+                          pitch_span_l=args.pitch_span_l)
+        wav = torch.from_numpy(np.stack([
+            load_wav_file(str(p), T)
+            for p in sorted(root.glob("*/spk00[0-3]_nohash_0.wav"))[:8]]))
+        infer_card_vs_cpu(device, wav, card)
+        launches = serving_chain(device, td, root, card)
+        bench_infer_runs(Path(td) / "bench", card)
+    log(f"[infer] phase {time.perf_counter() - phase_t0:.1f} s")
     return launches
 
 
@@ -1490,7 +1960,6 @@ def main() -> int:
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train,
     )
-    from speech_recognition_tpu_torch.models.layers import BatchNorm
     from speech_recognition_tpu_torch.models.zoo import build_model
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
@@ -1587,15 +2056,9 @@ def main() -> int:
     model, _ = build_model(MODEL, num_classes=12,
                            generator=torch.Generator().manual_seed(1))
     x = ds.decode(ds.partitions["validation"].file_ids[:4])
-    # BN running statistics set to these clips' batch statistics (one
-    # train-mode pass at momentum 0), so that eval-mode activations keep
-    # their scale and the logits are not vanishingly small
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.momentum = 0.0
-    with torch.no_grad():
-        model.train()(x.cpu(), torch.Generator())
-    model.eval()
+    # BN running statistics set to these clips' batch statistics, so that
+    # the logits are not vanishingly small
+    model = with_batch_stats(model, x.cpu())
     on_card = copy.deepcopy(model).to(device).eval()
     with torch.no_grad():
         logits_card = on_card(x).cpu()
@@ -1646,10 +2109,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_kernel = dp_phase(card)
 
-    # 8. the accuracy signal's calibration, then the bench, each with the
-    # counts set to 0 just before
+    # 8. the accuracy signal's calibration, the serving path and the
+    # retrain on its pseudo-labels, then the bench, each with the counts
+    # set to 0 just before
     launches_by_path = {"slice": launches,
                         "fit": fit_phase(device, card),
+                        "infer": infer_phase(device, card),
                         "bench": bench_phase(card)}
 
     print(json.dumps({"kernels": [{

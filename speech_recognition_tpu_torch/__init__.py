@@ -14,8 +14,10 @@ a corpus on disk (``data/index.py``, ``data/wav.py``) with the spectral
 frontend (``ops/frontend.py``), ``conv_1d_spec``, ``Trainer.fit`` with BN
 re-estimation and checkpoints; the accuracy calibration
 (``tools/calibrate_accuracy.py``) and the bench (``python -m
-speech_recognition_tpu_torch.bench``). ROADMAP.md lists what is still to
-come.
+speech_recognition_tpu_torch.bench``); the serving path: TTA prediction
+(``infer/``), the speed-TTA stretch (``ops/stretch.py``), submissions,
+pseudo-labels and their command-line tools, and the inference bench
+(``tools/``). ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

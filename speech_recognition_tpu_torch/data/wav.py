@@ -135,12 +135,14 @@ def save_wav_file(filename: str, wav_data: np.ndarray,
         f.write(encode_wav_bytes(wav_data, sample_rate))
 
 
-def decode_batch_int16(paths: Sequence[str],
-                       desired_samples: int) -> np.ndarray:
+def decode_batch_int16(paths: Sequence[str], desired_samples: int,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
     """Decode many WAV files into a packed int16 array [N, desired_samples]
     (each padded or cropped); a file that does not decode raises with its
-    path."""
-    out = np.zeros((len(paths), desired_samples), dtype=np.int16)
+    path. ``out`` (int16, at least N rows) receives the rows in place of
+    a new array, and is returned."""
+    if out is None:
+        out = np.zeros((len(paths), desired_samples), dtype=np.int16)
     for i, p in enumerate(paths):
         with open(p, "rb") as f:
             try:

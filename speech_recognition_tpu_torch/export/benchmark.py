@@ -2,7 +2,8 @@
 data-parallel mesh (port of
 speech_recognition_tpu/export/benchmark.py::benchmark_train), its device
 busy time by ``torch.profiler`` (``traced_train_device_time``) and its
-FLOPs (``train_step_flops``), and the separable-block kernels at the
+FLOPs (``train_step_flops``), inference (``benchmark_inference`` and
+``traced_inference_device_time``), and the separable-block kernels at the
 flagship's trunk shapes: the forward (port of
 scripts/bench_separable_kernel.py) and the forward with its gradients
 (the path of the JAX package's custom VJP).
@@ -109,13 +110,39 @@ def traced_train_device_time(trainer, state, steps: int = 20,
                            f"device; the trainer runs on {device}")
     for _ in range(warmup):
         trainer.train_step(state)
+    trace = traced_device_time(
+        lambda: [trainer.train_step(state) for _ in range(steps)], device)
+    ms_per_step = trace["device_busy_ms"] / steps
+    return {
+        "device_ms_per_step": ms_per_step,
+        "device_clips_per_sec": trainer.batch_size * 1e3 / ms_per_step,
+        "device_busy_ms": trace["device_busy_ms"],
+        "kernels_per_step": trace["kernels"] / steps,
+        "top_kernels": {n: ms / steps for n, ms in trace["top"].items()},
+    }
+
+
+def traced_device_time(fn: Callable[[], Any],
+                       device: torch.device) -> Dict[str, Any]:
+    """Run ``fn`` once under ``torch.profiler`` and take the union of the
+    intervals in which a kernel, copy or memset ran on the card: the time
+    the device was busy, host gaps excluded.
+
+    Returns ``device_busy_ms``, ``wall_ms`` (the host clock from the
+    start of ``fn`` to the device's last activity, waited for),
+    ``kernels`` (the device activities traced), ``memcpy_htod_ms`` (the
+    host-to-device copies' device time) and ``top`` (the ten largest
+    names by total device ms). Raises if the trace holds no device
+    time.
+    """
     torch.cuda.synchronize(device)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            trainer.train_step(state)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
@@ -127,14 +154,84 @@ def traced_train_device_time(trainer, state, steps: int = 20,
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    ms_per_step = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {
-        "device_ms_per_step": ms_per_step,
-        "device_clips_per_sec": trainer.batch_size * 1e3 / ms_per_step,
         "device_busy_ms": busy_us / 1e3,
-        "kernels_per_step": len(spans) / steps,
-        "top_kernels": {n[:60]: us / 1e3 / steps for n, us in top},
+        "wall_ms": 1e3 * wall,
+        "kernels": len(spans),
+        "memcpy_htod_ms": sum(us for n, us in by_name.items()
+                              if "HtoD" in n) / 1e3,
+        "top": {n[:60]: us / 1e3 for n, us in top},
+    }
+
+
+def _synthetic_clips(batch_size: int, samples: int, device: torch.device):
+    """The JAX benchmark's inference batch: U(-0.1, 0.1) from numpy seed
+    0, float32, on ``device``."""
+    return torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.1, 0.1, (batch_size, samples)).astype(np.float32)).to(device)
+
+
+def benchmark_inference(predictor, batch_size: int = 384, steps: int = 20,
+                        warmup: int = 3,
+                        desired_samples: int = 16000) -> Dict[str, float]:
+    """Inference throughput on the card (port of
+    export/benchmark.py::benchmark_inference): ``steps`` predictions of
+    one synthetic [batch_size, desired_samples] batch, on the device,
+    after ``warmup`` untimed ones, timed by CUDA events (the host clock
+    beside them). Returns ms per batch, clips/s and ms per clip."""
+    device = predictor.device
+    if device.type != "cuda":
+        raise RuntimeError(f"benchmark_inference measures a CUDA device; "
+                           f"the predictor runs on {device}")
+    wav = _synthetic_clips(batch_size, desired_samples, device)
+    for _ in range(warmup):
+        predictor.predict(wav)
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        predictor.predict(wav)
+    end.record()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end) / steps
+    clips = steps * batch_size
+    return {
+        "ms_per_batch": ms,
+        "clips_per_sec": batch_size * 1e3 / ms,
+        "ms_per_clip": ms / batch_size,
+        "wall_ms_per_batch": 1e3 * wall / steps,
+        "clips": clips,
+    }
+
+
+def traced_inference_device_time(predictor, batch_size: int = 384,
+                                 steps: int = 20, warmup: int = 3,
+                                 desired_samples: int = 16000,
+                                 ) -> Dict[str, Any]:
+    """Device busy time of ``predictor.predict`` on the synthetic batch of
+    ``benchmark_inference``, from a ``torch.profiler`` trace of ``steps``
+    calls after ``warmup``: ``device_ms_per_batch``,
+    ``device_clips_per_sec``, ``kernels_per_batch`` and ``top_kernels``
+    (ms per batch)."""
+    device = predictor.device
+    if device.type != "cuda":
+        raise RuntimeError(f"traced_inference_device_time measures a CUDA "
+                           f"device; the predictor runs on {device}")
+    wav = _synthetic_clips(batch_size, desired_samples, device)
+    for _ in range(warmup):
+        predictor.predict(wav)
+    trace = traced_device_time(
+        lambda: [predictor.predict(wav) for _ in range(steps)], device)
+    ms = trace["device_busy_ms"] / steps
+    return {
+        "device_ms_per_batch": ms,
+        "device_clips_per_sec": batch_size * 1e3 / ms,
+        "kernels_per_batch": trace["kernels"] / steps,
+        "top_kernels": {n: v / steps for n, v in trace["top"].items()},
     }
 
 

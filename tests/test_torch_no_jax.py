@@ -33,7 +33,11 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
     walked.add(info.name[len(pkg.__name__) + 1:])
 new = {"bench", "labels", "data.wav", "data.index", "data.hard_corpus",
-       "ops.frontend", "train.checkpoint", "tools.calibrate_accuracy"}
+       "ops.frontend", "train.checkpoint", "tools.calibrate_accuracy",
+       "infer.tta", "infer.submission", "ops.stretch", "tools.tta_set",
+       "tools.pseudo", "tools.vote", "tools.blend", "tools.convert",
+       "tools.make_submission", "tools.create_tta_set",
+       "tools.pseudo_labels", "tools.evaluate", "tools.bench_infer"}
 assert new <= walked, new - walked
 import chip_smoke  # noqa: F401
 from speech_recognition_tpu_torch.config import prepare_model_settings
