@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once) and drives four paths:
+(one ``nvcc`` per source, all at once; the native WAV decoder is built
+with the host compiler at its first use) and drives these paths:
 
 - decode+augment (``[kernel]``): holds the kernel against its plain
   PyTorch version at the train step's shapes, on a step's draws with the
@@ -19,6 +20,13 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   ``conv_1d_time_sliced_with_attention`` at batch 384 on a synthetic
   bank the size of the full Speech Commands corpus, and one validation
   sweep — and checks that every train step launched the kernel;
+- the zoo (``[zoo]``), on the same bank: each of the eleven raw-waveform
+  models the port added after the flagship (the 1-D ladders, the grouped
+  models and the Inceptions) against its parameter-count golden, its f32
+  logits on the card against the CPU, then 10 bf16 train steps through
+  ``Trainer`` at batch 384 (ms/step and clips/s by CUDA events, peak
+  memory), checking finite losses, one decode+augment launch per step and
+  the kernel against its plain version on one of the model's draws;
 - separable block (``[separable]``): holds the fused forward kernel, in
   its ``fuse`` and ``fold`` variants, against its plain version at the
   flagship's 11 trunk shapes at batch 384 in bf16 and f32, then runs the
@@ -79,7 +87,10 @@ Builds the port's CUDA kernels from ``speech_recognition_tpu_torch/csrc``
   per BN batch, and holds it against its plain version on the draw with
   the most pseudo rows (to the last bit); then runs
   ``tools.bench_infer`` on the flagship at batch 384 over 7,777 WAVs,
-  with TTA and without, and echoes its line;
+  with TTA and without, and echoes its line; then times the native batch
+  WAV decoder (``csrc/wavio.cc``, on its default threads and on one)
+  against its numpy version over those files and checks that the rows
+  are equal;
 - the bench (``[bench]``): runs ``python -m
   speech_recognition_tpu_torch.bench`` in a child at the full-corpus
   scale (3 reps of 100 steps, no accuracy signal), checks that its first
@@ -102,6 +113,7 @@ import copy
 import functools
 import hashlib
 import json
+import os
 import re
 import socket
 import subprocess
@@ -211,6 +223,24 @@ INFER_DIRECT_ATOL = 1e-6
 RETRAIN_EPOCHS, RETRAIN_PSEUDO_FREQUENCY = 3, 0.5
 # tools.bench_infer on the flagship: 20 batches of 384 and a tail of 97
 BENCH_INFER_FILES = 7_777
+# the [zoo] phase: the eleven raw-waveform models the port added after the
+# flagship, each with its parameter-count golden (the JAX package's,
+# tests/test_zoo_param_goldens.py), trained at batch 384 in bf16 on
+# [slice]'s full-corpus bank for ZOO_WARMUP + ZOO_STEPS steps
+ZOO_PARAMS = {
+    "conv_1d_time_sliced": 1_271_008,
+    "conv_1d_time_stacked": 843_660,
+    "conv_1d_heavy": 1_588_800,
+    "conv_1d_gru": 950_539,
+    "conv_1d_fast": 540_000,
+    "conv_1d_learned_spec": 1_555_932,
+    "conv_1d_multi_time_sliced": 437_522,
+    "conv_1d_time_sliced_group": 686_340,
+    "conv_1d_top_down": 651_612,
+    "inception": 7_966_236,
+    "inception_d1": 2_122_060,
+}
+ZOO_WARMUP, ZOO_STEPS = 2, 8
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1389,6 +1419,101 @@ def spec_logits_card_vs_cpu(device, x_cpu: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def zoo_phase(device, card: str, ds, settings) -> int:
+    """The [zoo] phase, on [slice]'s full-corpus bank ``ds``: for each of
+    the eleven raw-waveform models, its parameter count against the JAX
+    golden, its f32 logits on the card against the CPU on 4 clips (TF32
+    off, BN statistics set to the clips'; within LOGITS_ATOL, absolute
+    and relative to max |logit|), 10 bf16 train steps through
+    ``Trainer`` at batch 384 with finite losses and one decode+augment
+    launch each (timed by CUDA events over the last 8), and the kernel
+    against its plain version on one of the model's own draws. Returns
+    the launches of decode+augment in the trainers' steps."""
+    from speech_recognition_tpu_torch.config import AugmentConfig
+    from speech_recognition_tpu_torch.export.benchmark import (
+        benchmark_train,
+    )
+    from speech_recognition_tpu_torch.models.zoo import (
+        MODEL_REGISTRY, build_model,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.train.loop import Trainer
+
+    phase_t0 = time.perf_counter()
+    missing = set(ZOO_PARAMS) - set(MODEL_REGISTRY)
+    if missing:
+        raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
+    x = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
+    total = 0
+    for name, golden in ZOO_PARAMS.items():
+        t0 = time.perf_counter()
+        model, spec = build_model(name, num_classes=12,
+                                  generator=torch.Generator().manual_seed(1))
+        count = sum(p.numel() for p in model.parameters())
+        if count != golden or spec.representation != "raw":
+            raise RuntimeError(f"[zoo] {name}: {count} parameters, golden "
+                               f"{golden}; representation "
+                               f"{spec.representation}")
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = with_batch_stats(model, x)
+        with torch.no_grad():
+            want = model(x)
+            got = copy.deepcopy(model).to(device)(x.to(device)).cpu()
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        # absolute, and relative to max |logit|: some of these models
+        # give logits of ~1e-2 at their init (conv_1d_top_down's BN inputs
+        # are far below BN's eps), where the absolute bound alone is loose
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        if got.shape != (4, 12) or not err <= LOGITS_ATOL \
+                or not err <= LOGITS_ATOL * top:
+            raise RuntimeError(f"[zoo] {name} logits card vs CPU: max abs "
+                               f"err {err}, max |logit| {top}")
+        del model
+        trainer = Trainer(name, settings, ds,
+                          augment=AugmentConfig(pseudo_frequency=0.6),
+                          batch_size=BATCH)
+        if trainer.compute_dtype != "bfloat16":
+            raise RuntimeError(f"[zoo] {name}: {trainer.compute_dtype}")
+        state = trainer.init_state()
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES = 0
+        result = benchmark_train(trainer, state, steps=ZOO_STEPS,
+                                 warmup=ZOO_WARMUP)
+        launches = K.LAUNCHES
+        losses = result["losses"]
+        if launches != ZOO_STEPS + ZOO_WARMUP:
+            raise RuntimeError(f"[zoo] {name}: {launches} kernel launches "
+                               f"in {ZOO_STEPS + ZOO_WARMUP} train steps")
+        if len(losses) != ZOO_STEPS + ZOO_WARMUP \
+                or not np.isfinite(losses).all():
+            raise RuntimeError(f"[zoo] {name} losses: {losses}")
+        kernel_err = decode_augment_on_path(ds, trainer.draw_batch(),
+                                            f"[zoo] {name}")
+        total += launches
+        log(f"[zoo] {name}: {count} parameters (golden); f32 logits card "
+            f"vs CPU max abs err {err:.3g} (tol {LOGITS_ATOL}, and "
+            f"{LOGITS_ATOL} of max |logit| {top:.3g}); losses {[round(v, 4) for v in losses]}; "
+            f"decode_augment launches {launches}, vs plain {kernel_err:.3g}")
+        log(f"[zoo] {name} bf16 batch {BATCH}: "
+            f"{result['ms_per_step']:.3f} ms/step, "
+            f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
+            f"{ZOO_STEPS} steps after {ZOO_WARMUP}; host clock "
+            f"{result['wall_ms_per_step']:.3f} ms/step); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    log(f"[zoo] phase {time.perf_counter() - phase_t0:.1f} s, "
+        f"decode_augment launches {total}")
+    return total
+
+
 def decode_augment_on_path(ds, d, label: str) -> float:
     """decode+augment's kernel against its plain version on one batch of a
     training path: ``d`` are the trainer's draws, on the bank and the
@@ -1874,6 +1999,39 @@ def bench_infer_runs(td, card: str) -> None:
             f"{time.perf_counter() - t0:.1f} s) | {card}")
 
 
+def wav_decoders(root, card: str) -> None:
+    """[infer] (d): the native batch WAV decoder (``csrc/wavio.cc``, on
+    its default threads and on one) against its numpy version over the
+    tree ``bench_infer`` wrote: files/s of each, host clock, the files in
+    the page cache (the bench has read them); the rows must be equal."""
+    from speech_recognition_tpu_torch.data import wav as W
+
+    paths = sorted(str(p) for p in root.rglob("*.wav"))
+    if len(paths) != BENCH_INFER_FILES:
+        raise RuntimeError(f"[infer] {len(paths)} WAVs under {root}")
+    rows = {}
+    threads = W.default_threads()
+    for label, decode in (
+            ("numpy", lambda: W.decode_batch_int16_numpy(paths, T)),
+            ("native, 1 thread", lambda: W.decode_batch_int16(
+                paths, T, num_threads=1)),
+            (f"native, {threads} threads",
+             lambda: W.decode_batch_int16(paths, T))):
+        t0 = time.perf_counter()
+        rows[label] = decode()
+        secs = time.perf_counter() - t0
+        log(f"[infer] WAV decode {label}: {len(paths)} files in "
+            f"{secs:.3f} s, {len(paths) / secs:.1f} files/s "
+            f"({1e6 * secs / len(paths):.1f} us a file; host clock, "
+            f"{os.cpu_count()} cores) | {card}")
+    want = rows.pop("numpy")
+    for label, got in rows.items():
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"[infer] WAV decode {label}: rows differ "
+                               f"from the numpy decoder's")
+    log("[infer] WAV decode: native rows equal the numpy decoder's")
+
+
 def infer_phase(device, card: str) -> int:
     """The [infer] phase: (a) the Predictor and the stretch on the card
     against the CPU, (b) the serving chain on the hard corpus and the
@@ -1902,6 +2060,7 @@ def infer_phase(device, card: str) -> int:
         infer_card_vs_cpu(device, wav, card)
         launches = serving_chain(device, td, root, card)
         bench_infer_runs(Path(td) / "bench", card)
+        wav_decoders(Path(td) / "bench", card)
     log(f"[infer] phase {time.perf_counter() - phase_t0:.1f} s")
     return launches
 
@@ -2104,15 +2263,22 @@ def main() -> int:
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss {val_loss:.4f}; "
         f"kernel launches in the main path: {launches}")
 
-    # 7. data-parallel training, in processes of their own
-    del trainer, state, ds, d, bg, args
+    # 7. the eleven raw-waveform zoo models on the same bank, each with
+    # the counts set to 0 just before its steps
+    del trainer, state
+    torch.cuda.empty_cache()
+    zoo_launches = zoo_phase(device, card, ds, settings)
+
+    # 8. data-parallel training, in processes of their own
+    del ds, d, bg, args
     torch.cuda.empty_cache()
     dp_kernel = dp_phase(card)
 
-    # 8. the accuracy signal's calibration, the serving path and the
+    # 9. the accuracy signal's calibration, the serving path and the
     # retrain on its pseudo-labels, then the bench, each with the counts
     # set to 0 just before
     launches_by_path = {"slice": launches,
+                        "zoo": zoo_launches,
                         "fit": fit_phase(device, card),
                         "infer": infer_phase(device, card),
                         "bench": bench_phase(card)}

@@ -3,18 +3,27 @@ speech_recognition_tpu/data/wav.py).
 
 Semantics follow TF's ``decode_wav``: 16-bit PCM -> float32 by division
 by 32768, optional pad or crop to ``desired_samples``, first channel
-only (input_data.py:117-156, audio.py:13-14). The JAX package's native
-multithreaded batch decoder (``native/wavio.cc``) is host C++ and is not
-ported yet (ROADMAP A); ``decode_batch_int16`` here is its numpy
-fallback, which gives the same int16 rows.
+only (input_data.py:117-156, audio.py:13-14).
+
+``decode_batch_int16`` decodes many files at once through the port's
+multithreaded C++ decoder (``csrc/wavio.cc``, built with the host
+compiler at first use and loaded with ``ctypes``; the JAX package's
+``native/wavio.cc``). It never falls back quietly: a library that does
+not build or load raises. ``decode_batch_int16_numpy`` is its plain
+version, the same rows from the numpy parser.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import os
 import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from speech_recognition_tpu_torch.ops.kernels import build
 
 INT16_DECODE_SCALE = 32768.0  # decode_wav semantics
 INT16_ENCODE_SCALE = 32767.0
@@ -135,20 +144,86 @@ def save_wav_file(filename: str, wav_data: np.ndarray,
         f.write(encode_wav_bytes(wav_data, sample_rate))
 
 
+def _batch_out(n: int, desired_samples: int,
+               out: Optional[np.ndarray]) -> np.ndarray:
+    if out is None:
+        return np.zeros((n, desired_samples), dtype=np.int16)
+    if out.dtype != np.int16 or out.ndim != 2 or out.shape[0] < n \
+            or out.shape[1] != desired_samples:
+        raise ValueError(f"out must be int16 [>= {n}, {desired_samples}], "
+                         f"got {out.dtype} {out.shape}")
+    return out
+
+
+def _decode_file_int16(path: str, desired_samples: int) -> np.ndarray:
+    with open(path, "rb") as f:
+        try:
+            return decode_wav_to_int16(f.read(), desired_samples)
+        except ValueError as e:
+            raise ValueError(f"cannot decode {path}: {e}") from e
+
+
+def decode_batch_int16_numpy(paths: Sequence[str], desired_samples: int,
+                             out: Optional[np.ndarray] = None) -> np.ndarray:
+    """``decode_batch_int16``'s plain version: one file at a time through
+    the numpy parser, the same rows and errors."""
+    out = _batch_out(len(paths), desired_samples, out)
+    for i, p in enumerate(paths):
+        out[i] = _decode_file_int16(p, desired_samples)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """Build ``csrc/wavio.cc`` (at first use) and load it; raises if the
+    build or the load fails."""
+    lib = ctypes.CDLL(str(build.build("wavio")))
+    lib.wavio_decode_batch.restype = ctypes.c_int
+    lib.wavio_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),    # paths
+        ctypes.c_int,                       # number of files
+        ctypes.c_int,                       # desired samples
+        ctypes.POINTER(ctypes.c_int16),     # out [n, desired], C order
+        ctypes.POINTER(ctypes.c_int32),     # lengths [n]
+        ctypes.c_int,                       # threads
+    ]
+    return lib
+
+
+def default_threads() -> int:
+    """The decoder's threads when none are asked for: four per core, at
+    most 32 (the JAX package's choice)."""
+    return min(32, max(1, (os.cpu_count() or 1) * 4))
+
+
 def decode_batch_int16(paths: Sequence[str], desired_samples: int,
+                       num_threads: int = 0,
                        out: Optional[np.ndarray] = None) -> np.ndarray:
     """Decode many WAV files into a packed int16 array [N, desired_samples]
-    (each padded or cropped); a file that does not decode raises with its
-    path. ``out`` (int16, at least N rows) receives the rows in place of
-    a new array, and is returned."""
-    if out is None:
-        out = np.zeros((len(paths), desired_samples), dtype=np.int16)
-    for i, p in enumerate(paths):
-        with open(p, "rb") as f:
-            try:
-                out[i] = decode_wav_to_int16(f.read(), desired_samples)
-            except ValueError as e:
-                raise ValueError(f"cannot decode {p}: {e}") from e
+    (each padded or cropped) with the native decoder on ``num_threads``
+    threads (0: ``default_threads()``). ctypes releases the GIL for the
+    call. A file the decoder marks unreadable is decoded again by the
+    numpy parser, so that a corrupt file raises ``ValueError`` naming its
+    path. ``out`` (int16, C-contiguous, at least N rows) receives the rows
+    in place of a new array, and is returned."""
+    n = len(paths)
+    out = _batch_out(n, desired_samples, out)
+    if not out.flags.c_contiguous:
+        raise ValueError("out must be C-contiguous")
+    lib = _library()
+    if n == 0:
+        return out
+    names = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    lengths = np.zeros(n, dtype=np.int32)
+    rc = lib.wavio_decode_batch(
+        names, n, desired_samples,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        num_threads if num_threads > 0 else default_threads())
+    if rc != 0:
+        raise RuntimeError(f"wavio_decode_batch returned {rc}")
+    for i in np.flatnonzero(lengths < 0):
+        out[i] = _decode_file_int16(paths[i], desired_samples)
     return out
 
 

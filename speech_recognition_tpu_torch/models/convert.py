@@ -16,8 +16,12 @@ Module names, the flagship: ``ConvBN_0`` -> ``stem``,
 ``depthwise``/``pointwise``), ``Dense_0`` -> ``attention``, ``Dense_1``
 -> ``head``, ``BatchNorm_0`` -> ``bn``. ``conv_1d_spec``: ``ConvBN_i``
 -> ``blocks.i`` (``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``),
-``Dense_0`` -> ``head``. The inputs are nested dicts of numpy arrays
-(e.g. from ``jax.device_get``), so this module needs no jax.
+``Dense_0`` -> ``head``. Every other ported model registers its layers
+under flax's own names (``ConvBN_7``, ``Conv_0``, ``Dense_1``: ``zoo.py``
+``_FlaxNamed``), so its top-level names carry over, and a fixed table per
+block class gives the leaves inside a block (``BLOCK_LEAVES``). The
+inputs are nested dicts of numpy arrays (e.g. from ``jax.device_get``),
+so this module needs no jax.
 """
 
 from __future__ import annotations
@@ -42,8 +46,29 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 FLAGSHIP = "conv_1d_time_sliced_with_attention"
 
+# flax's names of a block's submodules -> the port's, per block class
+_CONV_BN = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+_SEPARABLE = {"Conv_0": "depthwise", "Conv_1": "pointwise",
+              "BatchNorm_0": "bn"}
+BLOCK_LEAVES = {"ConvBN": _CONV_BN, "DepthwiseConvBlock": _SEPARABLE,
+                "GroupedDepthwiseBlock": _SEPARABLE}
+
+
+def _flax_named(path: Tuple[str, ...], model: str) -> str:
+    """The port's module name of a model built of flax-named layers."""
+    top, *inner = path
+    kind = top.rpartition("_")[0]
+    if not inner and kind in ("Conv", "Dense"):
+        return top
+    names = BLOCK_LEAVES.get(kind, {})
+    if len(inner) != 1 or inner[0] not in names:
+        raise KeyError(f"no {model} counterpart for flax path {path!r}")
+    return f"{top}.{names[inner[0]]}"
+
 
 def _module_name(path: Tuple[str, ...], model: str) -> str:
+    if model not in (FLAGSHIP, "conv_1d_spec"):
+        return _flax_named(path, model)
     top, *inner = path
     kind, _, idx = top.rpartition("_")
     if model == FLAGSHIP and kind == "ConvBN":

@@ -41,16 +41,20 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """Bias-free 1-D convolution with TF padding semantics and a
-    glorot-uniform kernel (every conv of the flagship is bias-free).
+    """1-D convolution with TF padding semantics and a glorot-uniform
+    kernel (flax ``nn.Conv`` as the JAX package's ``Conv`` uses it).
 
-    ``weight`` is [out, in/groups, k]. ``padding='same'`` pads
-    asymmetrically (TF SAME, left = total // 2), which torch's own
-    ``padding='same'`` cannot do at stride > 1.
+    ``weight`` is [out, in/groups, k]; ``bias`` [out] with ``use_bias``
+    (off by default: every conv of the flagship is bias-free; heads and
+    stems of other zoo models take one). ``padding='same'`` pads
+    asymmetrically (TF SAME, left = total // 2) over the dilated span
+    ``(k - 1) * dilation + 1``, which torch's own ``padding='same'``
+    cannot do at stride > 1.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int = 1, padding: str = "valid", groups: int = 1):
+                 stride: int = 1, padding: str = "valid", groups: int = 1,
+                 dilation: int = 1, use_bias: bool = False):
         super().__init__()
         if padding.lower() not in ("valid", "same"):
             raise ValueError(f"padding must be 'valid' or 'same', got "
@@ -59,18 +63,23 @@ class Conv(nn.Module):
         self.stride = stride
         self.padding = padding.lower()
         self.groups = groups
+        self.dilation = dilation
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel))
+        self.bias = (nn.Parameter(torch.empty(out_channels))
+                     if use_bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.xavier_uniform_(self.weight, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padding == "same":
-            x = F.pad(x, same_pad_amount(x.shape[-1], self.kernel,
-                                         self.stride))
-        return F.conv1d(x, self.weight, stride=self.stride,
-                        groups=self.groups)
+            span = (self.kernel - 1) * self.dilation + 1
+            x = F.pad(x, same_pad_amount(x.shape[-1], span, self.stride))
+        return F.conv1d(x, self.weight, self.bias, stride=self.stride,
+                        dilation=self.dilation, groups=self.groups)
 
 
 class Dense(nn.Module):
@@ -197,19 +206,20 @@ class Dropout(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv -> BatchNorm -> relu6 (layers.py ConvBN); ``groups`` > 1 gives
-    a grouped convolution, group j making output channels
+    """Conv -> BatchNorm -> relu6 (layers.py ConvBN, bias-free); ``groups``
+    > 1 gives a grouped convolution, group j making output channels
     [j Cout/g, (j+1) Cout/g) from input channels [j Cin/g, (j+1) Cin/g),
     as flax's ``feature_group_count`` does."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
-                 stride: int = 1, padding: str = "same", groups: int = 1):
+                 stride: int = 1, padding: str = "same", groups: int = 1,
+                 dilation: int = 1):
         super().__init__()
         if in_channels % groups or features % groups:
             raise ValueError(f"{in_channels} -> {features} channels do not "
                              f"split into {groups} groups")
         self.conv = Conv(in_channels, features, kernel, stride, padding,
-                         groups)
+                         groups, dilation)
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -233,6 +243,65 @@ class DepthwiseConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return relu6(self.bn(self.pointwise(self.depthwise(x))))
+
+
+class GroupedDepthwiseBlock(nn.Module):
+    """Depthwise conv over all channels -> 1x1 pointwise conv in
+    ``groups`` groups -> BatchNorm -> relu6 (layers.py
+    GroupedDepthwiseBlock). These are the block's intended grouped
+    semantics, as the JAX block has them, not the reference's, which
+    convolves the full tensor for every group."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int,
+                 groups: int, padding: str = "same", stride: int = 1):
+        super().__init__()
+        if in_channels % groups or features % groups:
+            raise ValueError(f"{in_channels} -> {features} channels do not "
+                             f"split into {groups} groups")
+        self.depthwise = Conv(in_channels, in_channels, kernel, stride,
+                              padding, groups=in_channels)
+        self.pointwise = Conv(in_channels, features, 1, groups=groups)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(self.bn(self.pointwise(self.depthwise(x))))
+
+
+def max_pool_1d(x: torch.Tensor, pool: int = 3, stride: int = 2,
+                padding: str = "valid") -> torch.Tensor:
+    """Max pooling over the time axis of NCW ``x`` as a chain of
+    ``torch.maximum`` over strided slices (layers.py ``_max_pool_axis``).
+
+    SAME pads with -inf, left = total // 2. The chain's gradient splits
+    the cotangent between tied maxima, as the JAX pool's ``jnp.maximum``
+    chain does; ``F.max_pool1d`` would give it all to the first.
+    """
+    t = x.shape[-1]
+    if padding.lower() == "same":
+        out = -(-t // stride)
+        x = F.pad(x, same_pad_amount(t, pool, stride), value=float("-inf"))
+    else:
+        out = (t - pool) // stride + 1
+    last = (out - 1) * stride + 1
+    y = x[..., :last:stride]
+    for i in range(1, pool):
+        y = torch.maximum(y, x[..., i:i + last:stride])
+    return y
+
+
+def avg_pool_1d(x: torch.Tensor, pool: int = 3, stride: int = 1,
+                padding: str = "same") -> torch.Tensor:
+    """Average pooling over the time axis of NCW ``x`` (layers.py
+    avg_pool_1d): SAME divides each window by its count of samples that
+    are not padding, as TF's AveragePooling1D does. Takes SAME only where
+    its pad is symmetric (pool 3 at stride 1, as the zoo uses it)."""
+    left, right = (same_pad_amount(x.shape[-1], pool, stride)
+                   if padding.lower() == "same" else (0, 0))
+    if left != right:
+        raise ValueError(f"SAME average pooling {pool}/{stride} at length "
+                         f"{x.shape[-1]} pads asymmetrically")
+    return F.avg_pool1d(x, pool, stride, padding=left,
+                        count_include_pad=False)
 
 
 def truncate_to_groups(x: torch.Tensor, groups: int) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
-use by ``nvcc`` straight into ``speech_recognition_tpu_torch/_build/``
-(not tracked by git); its wrapper loads it with ``ctypes``. The library's file name
-carries a hash of the source, the shared headers ``csrc/*.cuh`` and the
-flags, so an edited source or header is rebuilt and a stale library is
-never loaded. No PyTorch header is
-included: a build takes seconds where ``torch.utils.cpp_extension``
-takes minutes.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cc`` (host C++,
+the batch WAV decoder) has a plain C interface and is compiled on first
+use, by ``nvcc`` or by the host compiler (``g++``),
+straight into ``speech_recognition_tpu_torch/_build/`` (not tracked by
+git); its wrapper loads it with ``ctypes``. The library's file name
+carries a hash of the source, of the shared headers ``csrc/*.cuh`` (for
+a ``.cu``) and of the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. No PyTorch header is included: a build
+takes seconds where ``torch.utils.cpp_extension`` takes minutes.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3")
 NVCC_FLAGS = COMPILE_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
+HOST_CXX = "g++"
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 
 def find_nvcc() -> str:
@@ -41,18 +44,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source(name: str) -> Path:
+    """``csrc/<name>.cu`` if there is one, else ``csrc/<name>.cc``."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cc"
+
+
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives for its current source
-    and the current ``csrc/*.cuh`` headers (any of which it may include)."""
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    """Where the build of ``csrc/<name>.cu`` (or ``.cc``) lives for its
+    current source, its flags and, for a ``.cu``, the current
+    ``csrc/*.cuh`` headers (any of which it may include)."""
+    src = source(name)
+    h = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        h.update(" ".join(HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, nvcc: str | None = None) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this source exists.
+def build(name: str, compiler: str | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``nvcc``, or ``csrc/<name>.cc``
+    with the host compiler, unless a build of this source exists.
+    ``compiler`` overrides the one found. A failed build raises, with the
+    compiler's output.
 
     The library is written under a temporary name and renamed into
     place, so a concurrent or interrupted build never leaves a partial
@@ -61,15 +78,23 @@ def build(name: str, nvcc: str | None = None) -> Path:
     lib = library_path(name)
     if lib.exists():
         return lib
+    src = source(name)
+    if src.suffix == ".cu":
+        compiler, flags = compiler or find_nvcc(), NVCC_FLAGS
+    else:
+        compiler, flags = compiler or HOST_CXX, HOST_FLAGS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [compiler, *flags, "-o", tmp, str(src)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {compiler!r} to build "
+                               f"{src.name}: {e}") from e
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+            raise RuntimeError(f"{compiler} failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:

@@ -171,6 +171,28 @@ def test_device_dataset_from_files_matches_jax(corpus):
             np.asarray(getattr(want.background, field)))
 
 
+def test_device_dataset_decodes_through_the_native_library(corpus,
+                                                           monkeypatch):
+    """The bank's clips are decoded in one call of the native decoder
+    (``csrc/wavio.cc``), and give the numpy decoder's rows."""
+    lib, calls = W._library(), []
+
+    class Counting:
+        def wavio_decode_batch(self, *args):
+            calls.append(args[1])
+            return lib.wavio_decode_batch(*args)
+
+    monkeypatch.setattr(W, "_library", Counting)
+    index = I.build_dataset_index([str(corpus)], **INDEX_ARGS)
+    ds = build_device_dataset(index, prepare_model_settings(12), CPU)
+    assert calls == [ds.num_clips]
+    paths = list(dict.fromkeys(
+        e.file for mode in ("training", "validation", "testing", "pseudo")
+        for e in index.data_index[mode]))
+    np.testing.assert_array_equal(ds.wav_bank.numpy(),
+                                  W.decode_batch_int16_numpy(paths, 16000))
+
+
 def _digest(root: Path) -> dict:
     return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes())
             .hexdigest() for p in sorted(root.rglob("*.wav"))}

@@ -245,6 +245,29 @@ def test_predict_directory_matches_jax(pair, mode, tmp_path):
     assert np.array_equal(got, direct)
 
 
+def test_predict_directory_decodes_through_the_native_library(
+        pair, tmp_path, monkeypatch):
+    """Each batch of clips, and of their slowed twins, is one call of the
+    native decoder (``csrc/wavio.cc``), on the decode worker thread."""
+    from speech_recognition_tpu_torch.data import wav as W
+
+    lib, calls = W._library(), []
+
+    class Counting:
+        def wavio_decode_batch(self, *args):
+            calls.append(args[1])
+            return lib.wavio_decode_batch(*args)
+
+    monkeypatch.setattr(W, "_library", Counting)
+    names = [f"clip_{i:03d}.wav" for i in range(7)]
+    test_dir, tta_dir = str(tmp_path / "test"), str(tmp_path / "tta")
+    _tree(test_dir, names, 8)
+    _tree(tta_dir, names, 9)
+    _, pred = _predictors(pair, "speed")
+    predict_directory(pred, test_dir, batch_size=3, tta_dir=tta_dir)
+    assert sorted(calls) == [1, 1, 3, 3, 3, 3]
+
+
 def test_predictor_runs_the_model_with_tf32_off_and_restores_the_flags(
         monkeypatch):
     """PyTorch lets cuDNN's convolutions take TF32 by default; the

@@ -37,7 +37,8 @@ new = {"bench", "labels", "data.wav", "data.index", "data.hard_corpus",
        "infer.tta", "infer.submission", "ops.stretch", "tools.tta_set",
        "tools.pseudo", "tools.vote", "tools.blend", "tools.convert",
        "tools.make_submission", "tools.create_tta_set",
-       "tools.pseudo_labels", "tools.evaluate", "tools.bench_infer"}
+       "tools.pseudo_labels", "tools.evaluate", "tools.bench_infer",
+       "models.zoo", "models.layers", "models.convert", "ops.kernels.build"}
 assert new <= walked, new - walked
 import chip_smoke  # noqa: F401
 from speech_recognition_tpu_torch.config import prepare_model_settings
@@ -61,6 +62,20 @@ state = trainer.init_state()
 loss = trainer.train_step(state)["loss"]
 assert torch.isfinite(loss), loss
 assert plain_calls == [1] and K.LAUNCHES == 0, (plain_calls, K.LAUNCHES)
+
+# the native WAV decoder and a zoo model of the raw-waveform slice
+import os, tempfile
+import numpy as np
+from speech_recognition_tpu_torch.data import wav
+from speech_recognition_tpu_torch.models.zoo import build_model
+with tempfile.TemporaryDirectory() as td:
+    path = os.path.join(td, "a.wav")
+    wav.save_wav_file(path, np.linspace(-0.5, 0.5, 100), 16000)
+    rows = wav.decode_batch_int16([path], 16000)
+    assert (rows == wav.decode_batch_int16_numpy([path], 16000)).all()
+    assert wav._library.cache_info().currsize == 1
+model, _ = build_model("conv_1d_top_down", num_classes=12)
+assert model.eval()(torch.zeros(2, 16000)).shape == (2, 12)
 loaded = [n for n in sys.modules if sys.modules[n] is not None
           and n.split(".")[0] in ("jax", "flax", "optax",
                                   "speech_recognition_tpu")]
@@ -128,16 +143,16 @@ def fake_build(tmp_path, monkeypatch):
 
 def test_build_compiles_once_per_source(fake_build):
     csrc, out, log, nvcc = fake_build
-    lib = build.build("k", nvcc=nvcc)
+    lib = build.build("k", compiler=nvcc)
     assert lib.parent == out and lib.read_text() == "built\n"
-    assert build.build("k", nvcc=nvcc) == lib          # cached
+    assert build.build("k", compiler=nvcc) == lib          # cached
     assert len(log.read_text().splitlines()) == 1
     args = log.read_text().split()
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                  "-shared", "-fPIC"):
         assert flag in args
     (csrc / "k.cu").write_text("// v2\n")              # edited source
-    lib2 = build.build("k", nvcc=nvcc)
+    lib2 = build.build("k", compiler=nvcc)
     assert lib2 != lib and len(log.read_text().splitlines()) == 2
     assert sorted(p.name for p in out.iterdir()) == sorted(
         [lib.name, lib2.name])                         # no temp files
@@ -148,6 +163,6 @@ def test_build_reports_compiler_errors(fake_build, tmp_path):
     bad.write_text("#!/bin/sh\necho 'error: no such thing' >&2\nexit 3\n")
     bad.chmod(0o755)
     with pytest.raises(RuntimeError, match="no such thing"):
-        build.build("k", nvcc=str(bad))
+        build.build("k", compiler=str(bad))
     _, out, _, _ = fake_build
     assert list(out.iterdir()) == []
