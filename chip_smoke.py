@@ -20,13 +20,16 @@ with the host compiler at its first use) and drives these paths:
   ``conv_1d_time_sliced_with_attention`` at batch 384 on a synthetic
   bank the size of the full Speech Commands corpus, and one validation
   sweep — and checks that every train step launched the kernel;
-- the zoo (``[zoo]``), on the same bank: each of the eleven raw-waveform
-  models the port added after the flagship (the 1-D ladders, the grouped
-  models and the Inceptions) against its parameter-count golden, its f32
-  logits on the card against the CPU, then 10 bf16 train steps through
-  ``Trainer`` at batch 384 (ms/step and clips/s by CUDA events, peak
-  memory), checking finite losses, one decode+augment launch per step and
-  the kernel against its plain version on one of the model's draws;
+- the zoo (``[zoo]``), on the same bank: each of the 23 zoo models other
+  than the flagship and ``conv_1d_spec`` (the 1-D ladders, the grouped
+  models, the Inceptions, the residual family, the MFCC MLPs and 2-D
+  convs, and the BiGRU models), at its golden's feature geometry,
+  against its parameter-count golden, its f32 logits on the card against
+  the CPU on the same ``Frontend`` features, then 10 bf16 train steps
+  through ``Trainer`` at batch 384 (ms/step and clips/s by CUDA events,
+  peak memory), checking finite losses, one decode+augment launch per
+  step and the kernel against its plain version on one of the model's
+  draws;
 - separable block (``[separable]``): holds the fused forward kernel, in
   its ``fuse`` and ``fold`` variants, against its plain version at the
   flagship's 11 trunk shapes at batch 384 in bf16 and f32, then runs the
@@ -110,6 +113,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import dataclasses
 import functools
 import hashlib
 import json
@@ -223,10 +227,11 @@ INFER_DIRECT_ATOL = 1e-6
 RETRAIN_EPOCHS, RETRAIN_PSEUDO_FREQUENCY = 3, 0.5
 # tools.bench_infer on the flagship: 20 batches of 384 and a tail of 97
 BENCH_INFER_FILES = 7_777
-# the [zoo] phase: the eleven raw-waveform models the port added after the
-# flagship, each with its parameter-count golden (the JAX package's,
-# tests/test_zoo_param_goldens.py), trained at batch 384 in bf16 on
-# [slice]'s full-corpus bank for ZOO_WARMUP + ZOO_STEPS steps
+# the [zoo] phase: the 23 zoo models other than the flagship and
+# conv_1d_spec, each with its parameter-count golden (the JAX package's,
+# tests/test_zoo_param_goldens.py) at the golden's geometry (98 frames,
+# 60 mel features but 40 for ZOO_MEL_40, 257 bins), trained at batch 384
+# in bf16 on [slice]'s full-corpus bank for ZOO_WARMUP + ZOO_STEPS steps
 ZOO_PARAMS = {
     "conv_1d_time_sliced": 1_271_008,
     "conv_1d_time_stacked": 843_660,
@@ -239,8 +244,22 @@ ZOO_PARAMS = {
     "conv_1d_top_down": 651_612,
     "inception": 7_966_236,
     "inception_d1": 2_122_060,
+    "conv_1d_residual": 6_472_332,
+    "steffeNet": 20_056_448,
+    "conv_1d_log_mfcc": 774_990,
+    "conv_1d_spectrogram": 812_814,
+    "conv_1d_mfcc_and_raw": 1_911_084,
+    "simple": 47_052,
+    "snn": 2_180_812,
+    "conv_2d": 706_764,
+    "conv_2d_mobile": 1_176_684,
+    "conv_2d_fast": 102_988,
+    "conv_1d_simple": 540_587,
+    "xception_with_attention": 2_264_654,
 }
+ZOO_MEL_40 = ("simple", "snn", "conv_2d", "conv_2d_mobile", "conv_2d_fast")
 ZOO_WARMUP, ZOO_STEPS = 2, 8
+ZOO_TRACED = 3      # steps traced by torch.profiler after the timed ones
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1419,23 +1438,36 @@ def spec_logits_card_vs_cpu(device, x_cpu: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _to(x, device):
+    """A tensor or a tuple of them (the mfcc_and_raw input) on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(t.to(device) for t in x)
+    return x.to(device)
+
+
 def zoo_phase(device, card: str, ds, settings) -> int:
     """The [zoo] phase, on [slice]'s full-corpus bank ``ds``: for each of
-    the eleven raw-waveform models, its parameter count against the JAX
-    golden, its f32 logits on the card against the CPU on 4 clips (TF32
-    off, BN statistics set to the clips'; within LOGITS_ATOL, absolute
-    and relative to max |logit|), 10 bf16 train steps through
+    the 23 models of ``ZOO_PARAMS``, at its golden's geometry (98 frames;
+    60 mel features, 40 for ``ZOO_MEL_40``; 257 bins), its parameter
+    count against the JAX golden, its f32 logits on the card against the
+    CPU on ``Frontend.features`` of 4 clips, the same features on both
+    (TF32 off, BN statistics set to the features'; within LOGITS_ATOL,
+    absolute and relative to max |logit|), 10 bf16 train steps through
     ``Trainer`` at batch 384 with finite losses and one decode+augment
-    launch each (timed by CUDA events over the last 8), and the kernel
-    against its plain version on one of the model's own draws. Returns
-    the launches of decode+augment in the trainers' steps."""
+    launch each (timed by CUDA events over the last 8), the kernel
+    against its plain version on one of the model's own draws, and the
+    device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
+    against the events' step. Returns the launches of decode+augment in
+    the trainers' timed steps (read before the comparison and the
+    trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
     from speech_recognition_tpu_torch.export.benchmark import (
-        benchmark_train,
+        benchmark_train, traced_train_device_time,
     )
     from speech_recognition_tpu_torch.models.zoo import (
         MODEL_REGISTRY, build_model,
     )
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
     )
@@ -1445,17 +1477,24 @@ def zoo_phase(device, card: str, ds, settings) -> int:
     missing = set(ZOO_PARAMS) - set(MODEL_REGISTRY)
     if missing:
         raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
-    x = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
+    clips = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
     total = 0
     for name, golden in ZOO_PARAMS.items():
         t0 = time.perf_counter()
-        model, spec = build_model(name, num_classes=12,
-                                  generator=torch.Generator().manual_seed(1))
+        s = dataclasses.replace(settings, num_log_mel_features=(
+            40 if name in ZOO_MEL_40 else 60))
+        model, spec = build_model(
+            name, num_classes=12, generator=torch.Generator().manual_seed(1),
+            spectrogram_length=s.spectrogram_length,
+            num_log_mel_features=s.num_log_mel_features,
+            spectrogram_frequencies=s.spectrogram_frequencies,
+            window_size_samples=s.window_size_samples,
+            window_stride_samples=s.window_stride_samples)
         count = sum(p.numel() for p in model.parameters())
-        if count != golden or spec.representation != "raw":
+        if count != golden:
             raise RuntimeError(f"[zoo] {name}: {count} parameters, golden "
-                               f"{golden}; representation "
-                               f"{spec.representation}")
+                               f"{golden}")
+        x = Frontend(s).features(clips, spec.representation)
         tf32 = (torch.backends.cudnn.allow_tf32,
                 torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
@@ -1463,7 +1502,7 @@ def zoo_phase(device, card: str, ds, settings) -> int:
         model = with_batch_stats(model, x)
         with torch.no_grad():
             want = model(x)
-            got = copy.deepcopy(model).to(device)(x.to(device)).cpu()
+            got = copy.deepcopy(model).to(device)(_to(x, device)).cpu()
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
         # absolute, and relative to max |logit|: some of these models
@@ -1475,7 +1514,7 @@ def zoo_phase(device, card: str, ds, settings) -> int:
             raise RuntimeError(f"[zoo] {name} logits card vs CPU: max abs "
                                f"err {err}, max |logit| {top}")
         del model
-        trainer = Trainer(name, settings, ds,
+        trainer = Trainer(name, s, ds,
                           augment=AugmentConfig(pseudo_frequency=0.6),
                           batch_size=BATCH)
         if trainer.compute_dtype != "bfloat16":
@@ -1495,18 +1534,29 @@ def zoo_phase(device, card: str, ds, settings) -> int:
             raise RuntimeError(f"[zoo] {name} losses: {losses}")
         kernel_err = decode_augment_on_path(ds, trainer.draw_batch(),
                                             f"[zoo] {name}")
+        trace = traced_train_device_time(trainer, state, steps=ZOO_TRACED,
+                                         warmup=0)
+        busy = trace["device_ms_per_step"]
         total += launches
-        log(f"[zoo] {name}: {count} parameters (golden); f32 logits card "
-            f"vs CPU max abs err {err:.3g} (tol {LOGITS_ATOL}, and "
-            f"{LOGITS_ATOL} of max |logit| {top:.3g}); losses {[round(v, 4) for v in losses]}; "
-            f"decode_augment launches {launches}, vs plain {kernel_err:.3g}")
+        log(f"[zoo] {name} ({spec.representation}): {count} parameters "
+            f"(golden); f32 logits card vs CPU max abs err {err:.3g} (tol "
+            f"{LOGITS_ATOL}, and {LOGITS_ATOL} of max |logit| {top:.3g}); "
+            f"losses {[round(v, 4) for v in losses]}; decode_augment "
+            f"launches {launches}, vs plain {kernel_err:.3g}")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
             f"{result['ms_per_step']:.3f} ms/step, "
             f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
             f"{ZOO_STEPS} steps after {ZOO_WARMUP}; host clock "
             f"{result['wall_ms_per_step']:.3f} ms/step); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-            f"{time.perf_counter() - t0:.1f} s | {card}")
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; traced "
+            f"device {busy:.3f} ms/step in "
+            f"{trace['kernels_per_step']:.0f} kernels over {ZOO_TRACED} "
+            f"more steps, idle {100 * (1 - busy / result['ms_per_step']):.1f}"
+            f" % of the events' step; {time.perf_counter() - t0:.1f} s | "
+            f"{card}")
+        log(f"[zoo] {name} top kernels, device ms/step: " + "; ".join(
+            f"{k} {v:.3f}" for k, v in list(
+                trace["top_kernels"].items())[:4]))
         del trainer, state
         torch.cuda.empty_cache()
     log(f"[zoo] phase {time.perf_counter() - phase_t0:.1f} s, "
@@ -2263,8 +2313,8 @@ def main() -> int:
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss {val_loss:.4f}; "
         f"kernel launches in the main path: {launches}")
 
-    # 7. the eleven raw-waveform zoo models on the same bank, each with
-    # the counts set to 0 just before its steps
+    # 7. the other 23 zoo models on the same bank, each with the counts
+    # set to 0 just before its steps
     del trainer, state
     torch.cuda.empty_cache()
     zoo_launches = zoo_phase(device, card, ds, settings)

@@ -2,8 +2,11 @@
 
 Layouts (flax is NWC, the port NCW):
 
-* conv kernels (k, in/groups, out) -> (out, in/groups, k);
-* dense kernels (in, out) -> (out, in);
+* conv kernels (k, in/groups, out) -> (out, in/groups, k), and 2-D ones
+  (kh, kw, in/groups, out) -> (out, in/groups, kh, kw);
+* dense kernels (in, out) -> (out, in), and so the GRU's ``kernel``,
+  ``recurrent_kernel_zr`` and ``recurrent_kernel_h`` -> ``weight``,
+  ``recurrent_weight_zr`` and ``recurrent_weight_h``;
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and batch_stats
   ``mean``/``var`` -> ``running_mean``/``running_var``, one to one.
 
@@ -17,11 +20,13 @@ Module names, the flagship: ``ConvBN_0`` -> ``stem``,
 -> ``head``, ``BatchNorm_0`` -> ``bn``. ``conv_1d_spec``: ``ConvBN_i``
 -> ``blocks.i`` (``Conv_0`` -> ``conv``, ``BatchNorm_0`` -> ``bn``),
 ``Dense_0`` -> ``head``. Every other ported model registers its layers
-under flax's own names (``ConvBN_7``, ``Conv_0``, ``Dense_1``: ``zoo.py``
-``_FlaxNamed``), so its top-level names carry over, and a fixed table per
-block class gives the leaves inside a block (``BLOCK_LEAVES``). The
-inputs are nested dicts of numpy arrays (e.g. from ``jax.device_get``),
-so this module needs no jax.
+under flax's own names (``ConvBN_7``, ``Conv_0``, ``Dense_1``:
+``layers.py`` ``FlaxNamed``), so their names carry over at every level,
+and a fixed table per block class gives the leaves inside a block
+(``BLOCK_LEAVES``). Blocks nest: ``Residual1D_i`` holds ``Conv_0``,
+``BatchNorm_0`` and ``DepthwiseConvBlock_j``, and ``BiGRU_0`` holds
+``GRU_0`` and ``GRU_1`` (``CONTAINERS``). The inputs are nested dicts of
+numpy arrays (e.g. from ``jax.device_get``), so this module needs no jax.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "recurrent_kernel_zr": "recurrent_weight_zr",
+         "recurrent_kernel_h": "recurrent_weight_h"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -52,18 +59,33 @@ _SEPARABLE = {"Conv_0": "depthwise", "Conv_1": "pointwise",
               "BatchNorm_0": "bn"}
 BLOCK_LEAVES = {"ConvBN": _CONV_BN, "DepthwiseConvBlock": _SEPARABLE,
                 "GroupedDepthwiseBlock": _SEPARABLE}
+# block classes that keep flax's names inside -> the kinds they hold
+CONTAINERS = {"Residual1D": ("Conv", "BatchNorm", "DepthwiseConvBlock"),
+              "BiGRU": ("GRU",)}
+# what a model built of flax-named layers holds at its top level
+_TOP = ("Conv", "Dense", "GRU", *BLOCK_LEAVES, *CONTAINERS)
 
 
 def _flax_named(path: Tuple[str, ...], model: str) -> str:
     """The port's module name of a model built of flax-named layers."""
-    top, *inner = path
-    kind = top.rpartition("_")[0]
-    if not inner and kind in ("Conv", "Dense"):
-        return top
-    names = BLOCK_LEAVES.get(kind, {})
-    if len(inner) != 1 or inner[0] not in names:
-        raise KeyError(f"no {model} counterpart for flax path {path!r}")
-    return f"{top}.{names[inner[0]]}"
+    names, allowed, rest = [], _TOP, list(path)
+    while rest:
+        top = rest.pop(0)
+        kind = top.rpartition("_")[0]
+        if kind not in allowed:
+            break
+        names.append(top)
+        if kind in BLOCK_LEAVES:
+            if len(rest) == 1 and rest[0] in BLOCK_LEAVES[kind]:
+                return ".".join(names + [BLOCK_LEAVES[kind][rest[0]]])
+            break
+        if kind in CONTAINERS:
+            allowed = CONTAINERS[kind]
+        elif not rest:              # Conv, Dense, BatchNorm or GRU
+            return ".".join(names)
+        else:
+            break
+    raise KeyError(f"no {model} counterpart for flax path {path!r}")
 
 
 def _module_name(path: Tuple[str, ...], model: str) -> str:
@@ -93,11 +115,13 @@ def _module_name(path: Tuple[str, ...], model: str) -> str:
 
 
 def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and value.ndim == 3:
-        return value.transpose(2, 1, 0)
-    if leaf == "kernel" and value.ndim == 2:
+    if "kernel" not in leaf:
+        return value
+    if value.ndim == 2:
         return value.T
-    return value
+    # (*spatial, in/groups, out) -> (out, in/groups, *spatial)
+    return value.transpose(value.ndim - 1, value.ndim - 2,
+                           *range(value.ndim - 2))
 
 
 def from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],

@@ -149,7 +149,11 @@ class Trainer:
             self.model_name, num_classes=s.label_count,
             generator=torch.Generator().manual_seed(self.seed),
             spectrogram_length=s.spectrogram_length,
-            spectrogram_frequencies=s.spectrogram_frequencies)
+            num_log_mel_features=s.num_log_mel_features,
+            spectrogram_frequencies=s.spectrogram_frequencies,
+            desired_samples=s.desired_samples,
+            window_size_samples=s.window_size_samples,
+            window_stride_samples=s.window_stride_samples)
         model.to(self.device)
         if self.mesh.size > 1:
             use_mesh(model, self.mesh)
@@ -273,7 +277,9 @@ class Trainer:
                 return state
             for _ in range(num_batches):
                 d = self.draw_batch(pseudo_frequency, generator)
-                model(self.build_batch(d).to(dtype), generator)
+                x = self.build_batch(d)
+                model(tuple(t.to(dtype) for t in x) if isinstance(x, tuple)
+                      else x.to(dtype), generator)
         for bn, batches in stats.items():
             means, variances = zip(*batches)
             bn.running_mean.copy_(torch.stack(means).mean(0))

@@ -14,7 +14,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speech_recognition_tpu_torch.models.layers import Conv, Dense
 
 
 def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -30,13 +29,13 @@ def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def l2_kernel_penalty(model: nn.Module, scale: float) -> torch.Tensor:
-    """scale * sum(w**2) over conv and dense weights (Keras l2(scale)).
-
-    These are the tensors flax names ``kernel``; BatchNorm weights and
-    all biases are excluded, as in the JAX package.
+    """scale * sum(w**2) over every tensor flax names with ``kernel``
+    (Keras l2(scale)): each layer's ``KERNELS`` (the weights of convs and
+    dense layers, and the GRU's input and recurrent weights). BatchNorm
+    weights and all biases are excluded, as in the JAX package.
     """
-    weights = [m.weight for m in model.modules()
-               if isinstance(m, (Conv, Dense))]
+    weights = [getattr(m, name) for m in model.modules()
+               for name in getattr(m, "KERNELS", ())]
     if scale == 0.0:
         return torch.zeros((), device=weights[0].device)
     return scale * sum(w.square().sum() for w in weights)

@@ -65,8 +65,11 @@ def test_param_count_golden():
 
 
 def test_other_models_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_model("conv_2d")
+    """Every zoo name is ported now (ROADMAP A8 is done): a name outside
+    the registry raises as the JAX ``build_model`` does."""
+    build_model("conv_2d")
+    with pytest.raises(ValueError, match="Invalid model: conv_3d"):
+        build_model("conv_3d")
 
 
 def test_init_is_seeded_and_glorot_uniform():
