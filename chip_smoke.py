@@ -72,7 +72,21 @@ with the host compiler at its first use) and drives these paths:
   decode+augment launched once per train step and per BN batch and holds
   it against its plain version on a batch drawn from the trainer (to the
   last bit), and fails if the seed mean of ``val_acc_best`` is below
-  0.8309 (the JAX band's mean less two standard deviations);
+  0.8309 (the JAX band's mean less two standard deviations); seed 0 runs
+  with ``--eval_int8`` and prints the float32 and int8 archives'
+  validation accuracy and their difference;
+- training from the CLI (``[train]``), on ``[fit]``'s corpus:
+  ``tools.train`` (the flagship at batch 384) for two epochs in bank
+  mode, then with ``--stream`` and BN re-estimation over 8 batches, then
+  with ``--resume`` from the bank run's best checkpoint; checks each
+  run's steps and decode+augment's launches (one per train step and per
+  streamed BN batch) and reads its TensorBoard events back; freezes the
+  streamed run's best checkpoint (BN re-estimated) in float32 and int8
+  (``tools.freeze``), runs
+  ``tools.run_edge_inference --benchmark`` on the card over the
+  validation WAVs (archive bytes, batch-1 ms/sample) and holds the float32
+  archive's probabilities against the eager ``Predictor`` (f32, TF32 off)
+  to 1e-5 and the int8 archive's against the float32 one's to 0.05;
 - the serving path (``[infer]``): holds the TTA ``Predictor`` of the
   flagship and ``conv_1d_spec``, in its three modes, and ``time_stretch``
   on the card against the CPU (f32; the Predictor turns TF32 off);
@@ -94,6 +108,13 @@ with the host compiler at its first use) and drives these paths:
   WAV decoder (``csrc/wavio.cc``, on its default threads and on one)
   against its numpy version over those files and checks that the rows
   are equal;
+- streaming (``[stream]``): ``tools.bench_streaming``, the flagship at
+  batch 384 streamed from 2,048 WAVs on disk through the host prefetch
+  loader (2 warm-up, 30 timed and 5 traced steps): clips/s, the loader's
+  host seconds by part, the device's busy and idle share and the peak
+  memory; checks finite losses and one decode+augment launch per step,
+  and holds the kernel against its plain version on a streamed batch,
+  its own bank (to the last bit);
 - the bench (``[bench]``): runs ``python -m
   speech_recognition_tpu_torch.bench`` in a child at the full-corpus
   scale (3 reps of 100 steps, no accuracy signal), checks that its first
@@ -262,6 +283,20 @@ ZOO_WARMUP, ZOO_STEPS = 2, 8
 ZOO_TRACED = 3      # steps traced by torch.profiler after the timed ones
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
+# [stream]: tools.bench_streaming at its defaults (2,048 WAVs written as
+# the JAX script writes them), 2 warm-up + 30 timed + 5 traced steps
+STREAM_ARGS = ["--batch_size", str(BATCH), "--warmup", "2", "--steps", "30",
+               "--trace_steps", "5"]
+# [train]: tools.train on [fit]'s corpus, then the edge export
+TRAIN_EPOCHS = 2
+TRAIN_BN_BATCHES = 8
+TRAIN_VALIDATION_PCT = 20
+EDGE_BYTES = 5_000_000          # the reference's Pi budget (README.md:14)
+EDGE_INT8_BYTES = 2_000_000     # tests/test_edge_budget.py's int8 bound
+EDGE_CHECK_CLIPS = 32
+EDGE_PROB_ATOL = 1e-5           # an archive vs the eager Predictor
+EDGE_INT8_ATOL = 0.05           # int8 archive vs the f32 one
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -1564,20 +1599,21 @@ def zoo_phase(device, card: str, ds, settings) -> int:
     return total
 
 
-def decode_augment_on_path(ds, d, label: str) -> float:
-    """decode+augment's kernel against its plain version on one batch of a
-    training path: ``d`` are the trainer's draws, on the bank and the
-    background of its dataset ``ds``; to the last bit. Called after the
-    path's count was read, so these launches stay out of it."""
+def hold_decode_augment(bank, bg_flat, d, label: str) -> float:
+    """decode+augment's kernel against its plain version on one batch of
+    a training path: ``d`` are the trainer's draws on ``bank`` (the
+    dataset's, or a streamed batch as its own bank) and the background
+    ``bg_flat``; to the last bit. Called after the path's count was
+    read, so these launches stay out of it."""
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
     )
 
-    args = (ds.wav_bank, ds.background.flat, d.file_ids, d.shifts,
-            d.fg_vol, d.bg_pos, d.bg_vol)
+    args = (bank, bg_flat, d.file_ids, d.shifts, d.fg_vol, d.bg_pos,
+            d.bg_vol)
     got = K.decode_augment(*args)
     want = K.decode_augment_reference(*args)
-    if got.shape != (len(d.file_ids), ds.desired_samples) \
+    if got.shape != (len(d.file_ids), bank.shape[1]) \
             or not torch.isfinite(got).all():
         raise RuntimeError(f"{label} decode_augment {tuple(got.shape)} or "
                            f"non-finite values")
@@ -1588,14 +1624,18 @@ def decode_augment_on_path(ds, d, label: str) -> float:
     return err
 
 
-def fit_phase(device, card: str) -> int:
-    """The [fit] phase: the frontend and conv_1d_spec on the card against
-    the CPU, then the accuracy calibration for each seed on a hard corpus
-    written to a temporary directory; checks the launches of
-    decode+augment and the gate on the seed mean. Returns the launches."""
-    import tempfile
-    from pathlib import Path
+def decode_augment_on_path(ds, d, label: str) -> float:
+    """``hold_decode_augment`` on the bank and background of the
+    dataset ``ds``."""
+    return hold_decode_augment(ds.wav_bank, ds.background.flat, d, label)
 
+
+def fit_phase(device, card: str, root) -> int:
+    """The [fit] phase: the frontend and conv_1d_spec on the card against
+    the CPU, then the accuracy calibration for each seed (seed 0 with
+    ``--eval_int8``) on a hard corpus written to ``root``; checks the
+    launches of decode+augment and the gate on the seed mean. Returns the
+    launches."""
     from speech_recognition_tpu_torch.config import prepare_model_settings
     from speech_recognition_tpu_torch.data.hard_corpus import (
         build_hard_corpus,
@@ -1613,85 +1653,363 @@ def fit_phase(device, card: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = 0
-    with tempfile.TemporaryDirectory(prefix="srt_torch_fit_") as td:
-        args = C.parse_args(FIT_ARGS)
-        root = Path(td) / "audio"
+    args = C.parse_args(FIT_ARGS)
+    t0 = time.perf_counter()
+    build_hard_corpus(root, clips_per_word=args.clips_per_word,
+                      seed=args.corpus_seed,
+                      snr_db_range=(args.snr_lo, args.snr_hi),
+                      pitch_span_l=args.pitch_span_l)
+    log(f"[fit] hard corpus ({args.clips_per_word} clips per word, "
+        f"corpus seed {args.corpus_seed}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    settings = prepare_model_settings(12, output_representation="spec")
+    wav = torch.from_numpy(np.stack([
+        load_wav_file(str(p), settings.desired_samples)
+        for p in sorted(root.glob("*/spk00[0-3]_nohash_0.wav"))[:8]]))
+    errs = frontend_card_vs_cpu(device, wav, settings)
+    bad = {k: v for k, v in errs.items() if not v <= FRONTEND_RTOL[k]}
+    log(f"[fit] Frontend f32 (TF32 off), card vs CPU on {len(wav)} "
+        f"corpus clips, max abs err / max |value|: "
+        + ", ".join(f"{k} {v:.3g} (tol {FRONTEND_RTOL[k]})"
+                    for k, v in errs.items()))
+    if bad:
+        raise RuntimeError(f"frontend card vs CPU: {bad}")
+    x = Frontend(settings).features(wav, "spec")
+    logit_err = spec_logits_card_vs_cpu(device, x)
+    log(f"[fit] {FIT_MODEL} f32 logits, card vs CPU on {len(wav)} "
+        f"clips: max abs err / max |logit| {logit_err:.3g} (tol "
+        f"{SPEC_LOGITS_RTOL})")
+    if not logit_err <= SPEC_LOGITS_RTOL:
+        raise RuntimeError(f"{FIT_MODEL} logits card vs CPU: "
+                           f"{logit_err}")
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    bests = []
+    for seed in FIT_SEEDS:
+        args = C.parse_args(FIT_ARGS + ["--seed", str(seed)]
+                            + (["--eval_int8"] if seed == 0 else []))
         t0 = time.perf_counter()
-        build_hard_corpus(root, clips_per_word=args.clips_per_word,
-                          seed=args.corpus_seed,
-                          snr_db_range=(args.snr_lo, args.snr_hi),
-                          pitch_span_l=args.pitch_span_l)
-        log(f"[fit] hard corpus ({args.clips_per_word} clips per word, "
-            f"corpus seed {args.corpus_seed}) written in "
-            f"{time.perf_counter() - t0:.1f} s")
-
-        settings = prepare_model_settings(12, output_representation="spec")
-        wav = torch.from_numpy(np.stack([
-            load_wav_file(str(p), settings.desired_samples)
-            for p in sorted(root.glob("*/spk00[0-3]_nohash_0.wav"))[:8]]))
-        errs = frontend_card_vs_cpu(device, wav, settings)
-        bad = {k: v for k, v in errs.items() if not v <= FRONTEND_RTOL[k]}
-        log(f"[fit] Frontend f32 (TF32 off), card vs CPU on {len(wav)} "
-            f"corpus clips, max abs err / max |value|: "
-            + ", ".join(f"{k} {v:.3g} (tol {FRONTEND_RTOL[k]})"
-                        for k, v in errs.items()))
-        if bad:
-            raise RuntimeError(f"frontend card vs CPU: {bad}")
-        x = Frontend(settings).features(wav, "spec")
-        logit_err = spec_logits_card_vs_cpu(device, x)
-        log(f"[fit] {FIT_MODEL} f32 logits, card vs CPU on {len(wav)} "
-            f"clips: max abs err / max |logit| {logit_err:.3g} (tol "
-            f"{SPEC_LOGITS_RTOL})")
-        if not logit_err <= SPEC_LOGITS_RTOL:
-            raise RuntimeError(f"{FIT_MODEL} logits card vs CPU: "
-                               f"{logit_err}")
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-
-        bests = []
-        for seed in FIT_SEEDS:
-            args = C.parse_args(FIT_ARGS + ["--seed", str(seed)])
-            t0 = time.perf_counter()
-            K.LAUNCHES = 0
-            record, trainer, history = C.calibrate(args, corpus_root=root)
-            seed_launches = K.LAUNCHES
-            seed_s = time.perf_counter() - t0
-            da_err = decode_augment_on_path(
-                trainer.dataset, trainer.draw_batch(), f"[fit] seed {seed}")
-            steps = trainer.dataset.set_size("training") // args.batch_size
-            expected = args.epochs * (steps + args.bn_recalibration_batches)
-            for epoch, (acc, cps) in enumerate(zip(
-                    history["val_categorical_accuracy"],
-                    history["clips_per_sec"])):
-                log(f"[fit] seed {seed} epoch {epoch:2d}: val acc "
-                    f"{acc:.4f}, {cps:.0f} clips/s (train steps, host clock "
-                    f"to the read of the last step's loss)")
-            log(f"[fit] seed {seed} record: {json.dumps(record)}")
-            conf = history["confusion"][-1]
-            n_val = trainer.dataset.set_size("validation")
-            if conf.sum() != n_val // args.batch_size * args.batch_size:
-                raise RuntimeError(f"[fit] confusion sums to {conf.sum()} "
-                                   f"of {n_val} validation clips")
-            log(f"[fit] seed {seed}: {args.epochs} epochs of {steps} steps "
-                f"at batch {args.batch_size}, {trainer.compute_dtype}, BN "
-                f"re-estimation over {args.bn_recalibration_batches} "
-                f"batches per epoch, in {seed_s:.1f} s; decode_augment "
-                f"launches {seed_launches} (expected {expected}: one per "
-                f"train step and per BN batch); kernel vs plain on a drawn "
-                f"batch [{args.batch_size}, {T}]: max abs err {da_err:.3g} "
-                f"(tol {KERNEL_ATOL}) | {card}")
-            if seed_launches != expected:
-                raise RuntimeError(f"[fit] {seed_launches} decode_augment "
-                                   f"launches, expected {expected}")
-            launches += seed_launches
-            bests.append(record["val_acc_best"])
-            del trainer, history
+        K.LAUNCHES = 0
+        record, trainer, history = C.calibrate(args, corpus_root=root)
+        seed_launches = K.LAUNCHES
+        seed_s = time.perf_counter() - t0
+        da_err = decode_augment_on_path(
+            trainer.dataset, trainer.draw_batch(), f"[fit] seed {seed}")
+        steps = trainer.dataset.set_size("training") // args.batch_size
+        expected = args.epochs * (steps + args.bn_recalibration_batches)
+        for epoch, (acc, cps) in enumerate(zip(
+                history["val_categorical_accuracy"],
+                history["clips_per_sec"])):
+            log(f"[fit] seed {seed} epoch {epoch:2d}: val acc "
+                f"{acc:.4f}, {cps:.0f} clips/s (train steps, host clock "
+                f"to the read of the last step's loss)")
+        log(f"[fit] seed {seed} record: {json.dumps(record)}")
+        if args.eval_int8:
+            int8 = [record.get(k) for k in ("aot_f32_acc", "aot_int8_acc",
+                                            "int8_delta")]
+            if not all(isinstance(v, float) and np.isfinite(v)
+                       for v in int8):
+                raise RuntimeError(f"[fit] --eval_int8 record {int8}")
+            log(f"[fit] seed {seed} exported archives (batch 64, f32 "
+                f"compute, TF32 off) on the validation clips: aot_f32_acc "
+                f"{int8[0]:.4f}, aot_int8_acc {int8[1]:.4f}, int8_delta "
+                f"{int8[2]:+.4f} | {card}")
+        conf = history["confusion"][-1]
+        n_val = trainer.dataset.set_size("validation")
+        if conf.sum() != n_val // args.batch_size * args.batch_size:
+            raise RuntimeError(f"[fit] confusion sums to {conf.sum()} "
+                               f"of {n_val} validation clips")
+        log(f"[fit] seed {seed}: {args.epochs} epochs of {steps} steps "
+            f"at batch {args.batch_size}, {trainer.compute_dtype}, BN "
+            f"re-estimation over {args.bn_recalibration_batches} "
+            f"batches per epoch, in {seed_s:.1f} s; decode_augment "
+            f"launches {seed_launches} (expected {expected}: one per "
+            f"train step and per BN batch); kernel vs plain on a drawn "
+            f"batch [{args.batch_size}, {T}]: max abs err {da_err:.3g} "
+            f"(tol {KERNEL_ATOL}) | {card}")
+        if seed_launches != expected:
+            raise RuntimeError(f"[fit] {seed_launches} decode_augment "
+                               f"launches, expected {expected}")
+        launches += seed_launches
+        bests.append(record["val_acc_best"])
+        del trainer, history
     mean = sum(bests) / len(bests)
     log(f"[fit] val_acc_best per seed {bests}, mean {mean:.4f} (gate "
         f"{FIT_ACC_GATE}); phase {time.perf_counter() - phase_t0:.1f} s")
     if mean < FIT_ACC_GATE:
         raise RuntimeError(f"[fit] seed mean {mean:.4f} < {FIT_ACC_GATE}")
     return launches
+
+
+def stream_phase(card: str) -> int:
+    """The [stream] phase: ``tools.bench_streaming`` (the flagship at
+    batch 384 from a WAV tree on disk through ``HostPrefetchLoader``,
+    warm-up, timed and traced steps); checks finite losses and one
+    decode+augment launch a step, and holds the kernel against its plain
+    version on one more streamed batch, with the bench's own draws.
+    Returns the launches."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.tools import bench_streaming
+
+    t0 = time.perf_counter()
+    K.LAUNCHES = 0
+    out = run_tool(bench_streaming, STREAM_ARGS, "[stream]")
+    launches = K.LAUNCHES
+    diag, record = out["diagnostics"], out["record"]
+    if not diag["losses_finite"] or not record["value"] > 0:
+        raise RuntimeError(f"[stream] {record} {diag}")
+    if launches != diag["train_steps"] \
+            or diag["decode_augment_launches"] != launches:
+        raise RuntimeError(f"[stream] {launches} decode_augment launches in "
+                           f"{diag['train_steps']} streamed steps")
+    trainer = out["trainer"]
+    wav, labels, silence = out["batch"]
+    err = hold_decode_augment(wav, trainer.dataset.background.flat,
+                              trainer.draw_stream(labels, silence),
+                              "[stream]")
+    parts = diag["loader_s_per_step"]
+    log(f"[stream] {diag['model']} {diag['compute_dtype']} batch "
+        f"{diag['batch_size']} from {diag['corpus_clips_on_disk']} WAVs on "
+        f"disk: {record['value']:.1f} clips/s, {diag['ms_per_step']:.3f} "
+        f"ms/step over {diag['steps']} steps after {diag['warmup']} (host "
+        f"clock to the read of the last loss); loader host s/step: decode "
+        f"{parts['decode_s']:.4f} (producer), copies {parts['copy_s']:.4f} "
+        f"(producer), waiting {parts['wait_s']:.4f} (trainer); native "
+        f"decoder alone {diag['host_decode_clips_per_sec']:.0f} clips/s; "
+        f"traced device busy {diag['device_busy_ms_per_step']:.3f} ms/step "
+        f"(idle {100 * diag['device_idle_share']:.1f} % of the untraced "
+        f"step; {100 * diag['traced_idle_share']:.1f} % of the traced "
+        f"{diag['traced_wall_ms_per_step']:.3f} ms/step), H2D "
+        f"{diag['memcpy_htod_ms_per_step']:.3f} ms/step, "
+        f"{diag['kernels_per_step']:.0f} kernels a step; peak memory "
+        f"{diag['peak_memory_bytes'] / 1e9:.2f} GB | {card}")
+    log(f"[stream] decode_augment launches {launches} (one per streamed "
+        f"step); kernel vs plain on a streamed batch [{BATCH}, {T}] as its "
+        f"own bank: max abs err {err:.3g} (tol {KERNEL_ATOL}); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _train_line(line: str) -> bool:
+    return line.startswith(("[ep", "final", "resumed", "Wrote", "wrote",
+                            "{"))
+
+
+def train_phase(device, card: str, root) -> int:
+    """The [train] phase on the hard corpus [fit] wrote at ``root``:
+    ``tools.train`` in bank mode, with ``--stream`` and BN re-estimation,
+    and with ``--resume`` from the bank run's best checkpoint, each for
+    two epochs in a working directory of its own; reads the TensorBoard
+    events back; freezes the streamed run's best checkpoint in float32
+    and int8 (``tools.freeze``), runs ``tools.run_edge_inference
+    --benchmark`` on the card over the validation WAVs, and holds the
+    archives' probabilities against the eager ``Predictor`` (f32, TF32
+    off): the f32 archive against the checkpoint's weights, the int8
+    one against their int8 quantization, dequantized. Checks the steps
+    and decode+augment's launches of the three runs, and holds the kernel
+    against its plain version on a batch of the bank run and on a batch
+    of the CLI's streamed loader. Returns the launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.data.index import build_dataset_index
+    from speech_recognition_tpu_torch.data.prefetch import HostPrefetchLoader
+    from speech_recognition_tpu_torch.data.wav import load_wav_file
+    from speech_recognition_tpu_torch.export.aot import (
+        load_exported, quantize_weights_int8,
+    )
+    from speech_recognition_tpu_torch.infer.tta import Predictor, TTAConfig
+    from speech_recognition_tpu_torch.labels import (
+        SILENCE_LABEL, get_classes,
+    )
+    from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.tools import (
+        freeze, run_edge_inference, train,
+    )
+    from speech_recognition_tpu_torch.utils.tb_events import (
+        read_scalar_events,
+    )
+
+    phase_t0 = time.perf_counter()
+    common = ["--data_dirs", str(root), "--epochs", str(TRAIN_EPOCHS),
+              "--validation_percentage", str(TRAIN_VALIDATION_PCT),
+              "--device", device.type]
+    runs = (("bank", []),
+            ("stream", ["--stream", "--bn_recalibration_batches",
+                        str(TRAIN_BN_BATCHES)]),
+            ("resume", ["--resume"]))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="srt_torch_train_") as td:
+        os.chdir(td)
+        try:
+            out, launches = {}, {}
+            for mode, extra in runs:
+                if mode == "resume":
+                    best = Path("checkpoints_bank/BEST").read_text()
+                    best_step = int(torch.load(best, map_location="cpu",
+                                               weights_only=True)["step"])
+                    extra = extra + [best]
+                t0 = time.perf_counter()
+                K.LAUNCHES = 0
+                out[mode] = run_tool(train, common + ["--experiment", mode]
+                                     + extra, "[train]", _train_line)
+                launches[mode] = K.LAUNCHES
+                log(f"[train] tools.train {mode}: {TRAIN_EPOCHS} epochs, "
+                    f"step {out[mode]['state'].step}, val acc "
+                    f"{out[mode]['val_categorical_accuracy']:.4f}, "
+                    f"{time.perf_counter() - t0:.1f} s, decode_augment "
+                    f"launches {launches[mode]} | {card}")
+            ds = out["bank"]["trainer"].dataset
+            spe = max(1, ds.set_size("training") // BATCH)
+            want_steps = {"bank": TRAIN_EPOCHS * spe,
+                          "stream": TRAIN_EPOCHS * spe,
+                          "resume": best_step + TRAIN_EPOCHS * spe}
+            want_launches = {"bank": TRAIN_EPOCHS * spe,
+                             "stream": TRAIN_EPOCHS * (spe
+                                                       + TRAIN_BN_BATCHES),
+                             "resume": TRAIN_EPOCHS * spe}
+            for mode, _ in runs:
+                if out[mode]["state"].step != want_steps[mode] \
+                        or launches[mode] != want_launches[mode] \
+                        or not np.isfinite(out[mode]["val_loss"]):
+                    raise RuntimeError(
+                        f"[train] {mode}: step {out[mode]['state'].step} "
+                        f"(expected {want_steps[mode]}), launches "
+                        f"{launches[mode]} (expected "
+                        f"{want_launches[mode]}), val loss "
+                        f"{out[mode]['val_loss']}")
+                events = sorted(Path(f"logs_{mode}").glob("events.*"))
+                scalars = dict(read_scalar_events(str(events[0])))
+                if len(events) != 1 or sorted(scalars) != [0, 1] or any(
+                        not np.isfinite(v[k]) for v in scalars.values()
+                        for k in ("loss", "val_categorical_accuracy")):
+                    raise RuntimeError(f"[train] {mode} TensorBoard events "
+                                       f"{events}: {scalars}")
+            log(f"[train] steps per epoch {spe} at batch {BATCH}; steps and "
+                f"launches as expected (bank {want_launches['bank']}, "
+                f"stream {want_launches['stream']} with "
+                f"{TRAIN_BN_BATCHES} BN batches an epoch, resume "
+                f"{want_launches['resume']} from step {best_step}); "
+                f"TensorBoard events read back: epochs 0, 1, "
+                f"{len(scalars[1])} scalars each")
+
+            # the CLI's index; decode+augment on this path's own inputs:
+            # a batch of the bank run's dataset, and the first batch of the
+            # training files from the loader as the stream run builds it,
+            # each with its trainer's draws
+            classes = get_classes(wanted_only=True)
+            index = build_dataset_index(
+                data_dirs=[str(root)], silence_percentage=13.0,
+                unknown_percentage=60.0, wanted_words=classes,
+                validation_percentage=TRAIN_VALIDATION_PCT,
+                testing_percentage=0.0)
+            bank_trainer = out["bank"]["trainer"]
+            da_err = {"bank": decode_augment_on_path(
+                bank_trainer.dataset, bank_trainer.draw_batch(),
+                "[train] bank")}
+            stream_trainer = out["stream"]["trainer"]
+            with HostPrefetchLoader(
+                    index.files("training"), index.labels_array("training"),
+                    index.is_silence_array("training"), batch_size=BATCH,
+                    desired_samples=T, seed=0, device=device) as loader:
+                wav, labels, silence = next(loader)
+            da_err["stream"] = hold_decode_augment(
+                wav, stream_trainer.dataset.background.flat,
+                stream_trainer.draw_stream(labels, silence),
+                "[train] stream")
+            log(f"[train] decode_augment kernel vs plain, max abs err: on a "
+                f"batch of the bank run {da_err['bank']:.3g}, on a streamed "
+                f"batch [{BATCH}, {T}] of the CLI's loader "
+                f"{da_err['stream']:.3g} (tol {KERNEL_ATOL})")
+
+            # the validation WAVs (no silence entries) as a flat directory
+            files = sorted({e.file for e in index.data_index["validation"]
+                            if e.label != SILENCE_LABEL})
+            val_dir = Path("validation_wavs")
+            val_dir.mkdir()
+            for i, path in enumerate(files):
+                shutil.copy(path, val_dir / f"clip_{i:05d}.wav")
+            # the streamed run's best checkpoint: its BN statistics are
+            # re-estimated, so its probabilities differ by clip
+            best = Path("checkpoints_stream/BEST").read_text()
+            reports, fns = {}, {}
+            for dtype in ("float32", "int8"):
+                frozen = f"edge/{dtype}.pt2"
+                run_tool(freeze, ["--checkpoint_path", best, "--frozen_path",
+                                  frozen, "--weight_dtype", dtype,
+                                  "--wanted_only", "--device", device.type],
+                         "[train]")
+                reports[dtype] = run_tool(run_edge_inference, [
+                    "--frozen_graph", frozen, "--test_data", str(val_dir),
+                    "--submission_fn", f"edge_{dtype}.csv", "--benchmark",
+                    "--device", device.type], "[train]")
+                fns[dtype] = load_exported(frozen, device)
+            sizes = {k: r["artifact_bytes"] for k, r in reports.items()}
+            if not (sizes["float32"] < EDGE_BYTES
+                    and sizes["int8"] < EDGE_INT8_BYTES
+                    and sizes["int8"] < sizes["float32"] / 2.5):
+                raise RuntimeError(f"[train] archive bytes {sizes}")
+
+            settings = prepare_model_settings(label_count=12)
+            model, _ = build_model(MODEL, num_classes=12)
+            model.load_state_dict(torch.load(best, map_location="cpu",
+                                             weights_only=True)["model"])
+            predictor = Predictor(model, settings, "raw",
+                                  TTAConfig(use_tta=False), device)
+            wav = torch.from_numpy(np.stack([
+                load_wav_file(str(p), T)
+                for p in sorted(val_dir.glob("*.wav"))[:EDGE_CHECK_CLIPS]]))
+            eager = predictor.predict(wav)
+            # the same model with its int8 weights dequantized, as the
+            # int8 archive computes them
+            model_q, _ = build_model(MODEL, num_classes=12)
+            model_q.load_state_dict({
+                k: w if scale is None else w.float() * scale
+                for k, (w, scale) in quantize_weights_int8(
+                    model.state_dict()).items()})
+            eager_q = Predictor(model_q, settings, "raw",
+                                TTAConfig(use_tta=False), device).predict(wav)
+            probs = {k: torch.cat([fn(wav[i:i + 1])
+                                   for i in range(len(wav))])
+                     for k, fn in fns.items()}
+            spread = float(eager.std(0).max())
+            f32_err = float((probs["float32"] - eager).abs().max())
+            int8_err = float((probs["int8"] - probs["float32"]).abs().max())
+            int8_deq_err = float((probs["int8"] - eager_q).abs().max())
+            if not (f32_err <= EDGE_PROB_ATOL and int8_err <= EDGE_INT8_ATOL
+                    and int8_deq_err <= EDGE_PROB_ATOL
+                    and torch.isfinite(probs["int8"]).all()):
+                raise RuntimeError(f"[train] archives: f32 vs the eager "
+                                   f"Predictor {f32_err}, int8 vs f32 "
+                                   f"{int8_err}, int8 vs the eager Predictor "
+                                   f"on the dequantized weights "
+                                   f"{int8_deq_err}")
+        finally:
+            os.chdir(cwd)
+    for dtype, r in reports.items():
+        log(f"[train] edge {dtype}: {r['artifact_bytes']} bytes, batch 1 "
+            f"over {r['clips']} validation WAVs on the card: "
+            f"{r['avg_ms_per_sample']:.3f} ms/sample (model "
+            f"{r['avg_model_ms']:.3f}, decode {r['avg_decode_ms']:.3f}), "
+            f"device peak {r['device_peak_bytes'] / 1e6:.1f} MB, max RSS "
+            f"{r['max_rss_bytes'] / 1e9:.2f} GB | {card}")
+    log(f"[train] archive probabilities on {len(wav)} clips (largest "
+        f"std of a class over the clips {spread:.3g}): f32 vs the "
+        f"eager Predictor (f32, TF32 off) max abs err {f32_err:.3g} (tol "
+        f"{EDGE_PROB_ATOL}); int8 vs the eager Predictor on the dequantized "
+        f"int8 weights {int8_deq_err:.3g} (tol {EDGE_PROB_ATOL}); int8 vs "
+        f"f32 {int8_err:.3g} (tol {EDGE_INT8_ATOL}); phase "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    return sum(launches.values())
 
 
 def stretch_signals() -> dict:
@@ -1766,9 +2084,10 @@ def infer_card_vs_cpu(device, wav: torch.Tensor, card: str) -> None:
         raise RuntimeError(f"[infer] time_stretch card vs CPU: {bad}")
 
 
-def run_tool(tool, argv) -> object:
+def run_tool(tool, argv, tag: str = "[infer]", keep=None) -> object:
     """``tool.main(argv)`` in this process, its stdout echoed under
-    ``[infer] |``; returns what it returned."""
+    ``tag |`` (only the lines ``keep`` accepts, if given); returns what
+    it returned."""
     import contextlib
     import io
 
@@ -1776,7 +2095,8 @@ def run_tool(tool, argv) -> object:
     with contextlib.redirect_stdout(out):
         result = tool.main(argv)
     for line in out.getvalue().splitlines():
-        log(f"[infer] | {line}")
+        if keep is None or keep(line):
+            log(f"{tag} | {line}")
     return result
 
 
@@ -2324,14 +2644,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_kernel = dp_phase(card)
 
-    # 9. the accuracy signal's calibration, the serving path and the
-    # retrain on its pseudo-labels, then the bench, each with the counts
-    # set to 0 just before
-    launches_by_path = {"slice": launches,
-                        "zoo": zoo_launches,
-                        "fit": fit_phase(device, card),
-                        "infer": infer_phase(device, card),
-                        "bench": bench_phase(card)}
+    # 9. the accuracy signal's calibration, the training CLI and the edge
+    # export on its corpus, the serving path and the retrain on its
+    # pseudo-labels, streaming, then the bench, each with the counts set
+    # to 0 just before
+    import tempfile
+    from pathlib import Path
+
+    launches_by_path = {"slice": launches, "zoo": zoo_launches}
+    with tempfile.TemporaryDirectory(prefix="srt_torch_fit_") as td:
+        root = Path(td) / "audio"
+        launches_by_path["fit"] = fit_phase(device, card, root)
+        launches_by_path["train"] = train_phase(device, card, root)
+    launches_by_path["infer"] = infer_phase(device, card)
+    launches_by_path["stream"] = stream_phase(card)
+    launches_by_path["bench"] = bench_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "decode_augment",

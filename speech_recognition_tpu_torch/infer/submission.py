@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from speech_recognition_tpu_torch.data.wav import decode_batch_int16
+from speech_recognition_tpu_torch.data.prefetch import Slot
 from speech_recognition_tpu_torch.labels import (
     get_classes, map_to_valid, map_to_wanted, prepare_words_list,
 )
@@ -45,38 +45,6 @@ MAX_IN_FLIGHT = 8
 def list_test_files(test_dir: str) -> List[str]:
     """Sorted test WAVs (make_submission.py:35)."""
     return sorted(glob.glob(os.path.join(test_dir, "*.wav")))
-
-
-class _Slot:
-    """One batch's host buffers (the clips, and the slow clips with speed
-    TTA), pinned when the device is a card, and the event of their last
-    copy to the device: the buffers are not written again until it has
-    completed."""
-
-    def __init__(self, streams: int, batch_size: int, samples: int,
-                 device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.device = device
-        self.host = [torch.zeros((batch_size, samples), dtype=torch.int16,
-                                 pin_memory=self.cuda)
-                     for _ in range(streams)]
-        self.copied = None
-
-    def fill(self, path_lists: Sequence[Sequence[str]], samples: int):
-        if self.copied is not None:
-            self.copied.synchronize()
-        for buf, paths in zip(self.host, path_lists):
-            rows = buf.numpy()
-            decode_batch_int16(paths, samples, out=rows)
-            rows[len(paths):] = 0
-
-    def upload(self) -> List[torch.Tensor]:
-        on_device = [h.to(self.device, non_blocking=True, copy=True)
-                     for h in self.host]
-        if self.cuda:
-            self.copied = torch.cuda.Event()
-            self.copied.record()
-        return on_device
 
 
 class _Readback:
@@ -124,7 +92,7 @@ def predict_directory(predictor, test_dir: str, batch_size: int = 384,
         lists.append([os.path.join(tta_dir, os.path.basename(f))
                       for f in fns])
     starts = list(range(0, len(fns), batch_size))
-    slots = [_Slot(len(lists), batch_size, desired_samples, predictor.device)
+    slots = [Slot(len(lists), batch_size, desired_samples, predictor.device)
              for _ in range(DECODE_AHEAD + 1)]
     clock = dict.fromkeys(("decode_s", "decode_wait_s", "h2d_s",
                            "predict_s", "readback_wait_s"), 0.0)

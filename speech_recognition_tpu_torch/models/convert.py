@@ -27,6 +27,10 @@ and a fixed table per block class gives the leaves inside a block
 ``BatchNorm_0`` and ``DepthwiseConvBlock_j``, and ``BiGRU_0`` holds
 ``GRU_0`` and ``GRU_1`` (``CONTAINERS``). The inputs are nested dicts of
 numpy arrays (e.g. from ``jax.device_get``), so this module needs no jax.
+
+``to_flax`` is the inverse: a ``state_dict`` -> flax-layout ``params`` and
+``batch_stats`` (``export/keras_import.py`` matches a Keras checkpoint
+against that skeleton with the JAX package's algorithm).
 """
 
 from __future__ import annotations
@@ -139,3 +143,67 @@ def from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
             out[key] = torch.from_numpy(np.array(
                 _to_torch_layout(leaf, value), order="C"))
     return out
+
+
+def _flax_module_path(name: str, model: str) -> Tuple[str, ...]:
+    """The flax module path of the port's module ``name``: the inverse of
+    ``_module_name``, checked against it."""
+    parts = name.split(".")
+    if model == FLAGSHIP:
+        fixed = {"stem.conv": ("ConvBN_0", "Conv_0"),
+                 "stem.bn": ("ConvBN_0", "BatchNorm_0"),
+                 "attention": ("Dense_0",), "head": ("Dense_1",)}
+        path = fixed.get(name)
+        if path is None and len(parts) == 3 and parts[0] == "blocks":
+            inv = {v: k for k, v in _SEPARABLE.items()}
+            path = (f"DepthwiseConvBlock_{parts[1]}", inv.get(parts[2], ""))
+    elif model == "conv_1d_spec":
+        path = ("Dense_0",) if name == "head" else None
+        if len(parts) == 3 and parts[0] == "blocks":
+            inv = {v: k for k, v in _CONV_BN.items()}
+            path = (f"ConvBN_{parts[1]}", inv.get(parts[2], ""))
+    else:
+        path = tuple(parts)
+        block = parts[-2].rpartition("_")[0] if len(parts) > 1 else ""
+        if block in BLOCK_LEAVES:
+            inv = {v: k for k, v in BLOCK_LEAVES[block].items()}
+            path = tuple(parts[:-1]) + (inv.get(parts[-1], ""),)
+    try:
+        if path is not None and _module_name(path, model) == name:
+            return path
+    except KeyError:
+        pass
+    raise KeyError(f"no flax path of {model} for module {name!r}")
+
+
+def _to_flax_layout(leaf: str, value: np.ndarray) -> np.ndarray:
+    if "kernel" not in leaf:
+        return value
+    if value.ndim == 2:
+        return value.T
+    # (out, in/groups, *spatial) -> (*spatial, in/groups, out)
+    return value.transpose(*range(2, value.ndim), 1, 0)
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor], model: str = FLAGSHIP,
+            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``model``'s ``state_dict`` -> (flax ``params``, ``batch_stats``):
+    nested dicts of numpy arrays keyed by flax's module paths, in flax's
+    layouts. A module with running statistics is a BatchNorm (its
+    ``weight`` is flax's ``scale``); every other ``weight`` is a
+    ``kernel``. ``from_flax`` of the result gives ``state_dict`` back."""
+    batchnorms = {k.rpartition(".")[0] for k in state_dict
+                  if k.endswith(".running_mean")}
+    leaves = {v: k for k, v in _LEAF.items() if k != "scale"}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        mod, _, leaf = key.rpartition(".")
+        is_bn = mod in batchnorms
+        flax_leaf = "scale" if is_bn and leaf == "weight" else leaves[leaf]
+        tree = stats if flax_leaf in ("mean", "var") else params
+        for part in _flax_module_path(mod, model):
+            tree = tree.setdefault(part, {})
+        tree[flax_leaf] = np.ascontiguousarray(_to_flax_layout(
+            flax_leaf, value.detach().cpu().numpy()))
+    return params, stats

@@ -965,6 +965,17 @@ def _geometry(model_type: str, settings: Dict[str, Any]) -> Dict[str, Any]:
     return {}
 
 
+def settings_geometry(settings) -> Dict[str, Any]:
+    """The feature geometry of a ``ModelSettings`` as ``build_model``
+    takes it (what the JAX Trainer threads through, loop.py:157-164)."""
+    return dict(spectrogram_length=settings.spectrogram_length,
+                num_log_mel_features=settings.num_log_mel_features,
+                spectrogram_frequencies=settings.spectrogram_frequencies,
+                desired_samples=settings.desired_samples,
+                window_size_samples=settings.window_size_samples,
+                window_stride_samples=settings.window_stride_samples)
+
+
 def build_model(model_type: str, num_classes: int = 11,
                 generator: Optional[torch.Generator] = None,
                 **settings: Any) -> Tuple[nn.Module, ModelSpec]:

@@ -145,3 +145,4 @@ def augment_batch(wav: torch.Tensor, is_silence: torch.Tensor) -> torch.Tensor:
     neutral feed (no shift, no background; foreground volume 1, or 0 for
     silence; make_submission.py:86-93). [B, T] float32 -> [B, T]."""
     return wav * (~is_silence).to(wav.dtype)[:, None]
+

@@ -10,14 +10,16 @@ differ in temporal order, six word pairs alias each other in pitch, and
 an SNR sweep keeps accuracy off the 1.0 ceiling), with ReduceLROnPlateau
 (factor 0.5, patience 4, min lr 1e-5) and BN re-estimation before each
 validation sweep, and prints one JSON line with the accuracy record:
-the JAX script's keys, less the int8 ones. One line per epoch goes to
-stderr.
+the JAX script's keys. One line per epoch goes to stderr.
+``--eval_int8`` exports the trained model in float32 and in int8 at
+batch 64 (``export/aot.py``), runs the validation clips through both
+archives on the device and adds ``aot_f32_acc``, ``aot_int8_acc`` and
+``int8_delta`` to the record (scripts/calibrate_accuracy.py:163-191).
 
 The flags and defaults are the JAX script's, but for ``--device``
-(default ``cuda``; the CPU only when asked) and two that have no
-counterpart yet: ``--disable_pallas`` (the port has one decode+augment
-path, the CUDA kernel on the card) and ``--eval_int8`` (waits for the
-int8 export, ROADMAP A12).
+(default ``cuda``; the CPU only when asked) and ``--disable_pallas``,
+which has no counterpart: the port has one decode+augment path, the
+CUDA kernel on the card.
 
 The corpus is written once per set of corpus flags under the temporary
 directory (``$TMPDIR``), in a directory of the port's own
@@ -67,6 +69,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--steps_per_dispatch", type=int, default=8,
                    help="train steps per train_many call (the same "
                         "updates; see Trainer.fit)")
+    p.add_argument("--eval_int8", action="store_true",
+                   help="also report the exported float32 and int8 "
+                        "archives' validation accuracy")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -191,7 +196,35 @@ def calibrate(args: argparse.Namespace,
         "val_acc_best": round(max(accs), 4),
         "val_loss_final": round(history["val_loss"][-1], 4),
     }
+    if args.eval_int8:
+        record.update(exported_accuracy(trainer, state))
     return record, trainer, history
+
+
+def exported_accuracy(trainer, state, batch: int = 64) -> Dict[str, float]:
+    """Validation accuracy of the float32 and int8 archives of the
+    trained model at batch ``batch`` (full batches only, as the JAX
+    script sweeps them), and their difference."""
+    from speech_recognition_tpu_torch.export.aot import (
+        export_inference, load_exported,
+    )
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
+
+    wav, labels = trainer.dataset.get_unprocessed_data("validation")
+    n = wav.shape[0] // batch * batch
+    accs = {}
+    for dtype in ("float32", "int8"):
+        fn = load_exported(export_inference(
+            state.model, Frontend(trainer.settings, "highest"),
+            trainer.spec.representation,
+            desired_samples=trainer.settings.desired_samples,
+            batch_size=batch, weight_dtype=dtype), trainer.device)
+        preds = torch.cat([fn(wav[i:i + batch]).argmax(-1)
+                           for i in range(0, n, batch)])
+        accs[dtype] = float((preds == labels[:n]).float().mean())
+    return {"aot_f32_acc": round(accs["float32"], 4),
+            "aot_int8_acc": round(accs["int8"], 4),
+            "int8_delta": round(accs["int8"] - accs["float32"], 4)}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

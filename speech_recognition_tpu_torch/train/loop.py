@@ -12,7 +12,17 @@ Ported: ``init_state``, the two halves of ``_sample_batch``
 ``_update_step``, ``train_step``, ``train_many`` (a plain loop),
 ``_eval_step``, ``evaluate``, BN re-estimation
 (``recalibrate_batch_stats``), ``fit`` and
-``reference_pseudo_schedule``. Streaming comes with ROADMAP A10.
+``reference_pseudo_schedule``.
+
+Streaming (``train_step_stream``, ``train_many_stream``,
+``fit_streaming``, ``recalibrate_batch_stats_stream``): the batch comes
+from a ``data/prefetch.py::HostPrefetchLoader`` as int16 on the device,
+and is its own bank: its augmentation is drawn from the trainer's
+generator (``draw_stream``) and applied by the decode+augment kernel
+with ``file_ids = arange(B)`` (``build_stream_batch``), then the step is
+the bank path's ``_update_step``. Its dataset need hold only the
+validation partition (and the background bank), for ``evaluate``; such a
+trainer refuses the bank path's steps. Streaming runs on one rank.
 
 Data parallelism (``mesh`` of W > 1 ranks, one process each; the JAX
 trainer's multi-device mesh): every rank draws the global batch from the
@@ -38,10 +48,13 @@ from torch import nn
 
 from speech_recognition_tpu_torch.config import AugmentConfig, ModelSettings
 from speech_recognition_tpu_torch.data.device_bank import DeviceDataset
+from speech_recognition_tpu_torch.data.wav import INT16_DECODE_SCALE
 from speech_recognition_tpu_torch.models.layers import (
     at_least_float32, collect_batch_stats, use_mesh,
 )
-from speech_recognition_tpu_torch.models.zoo import build_model, get_spec
+from speech_recognition_tpu_torch.models.zoo import (
+    build_model, get_spec, settings_geometry,
+)
 from speech_recognition_tpu_torch.ops.augment import (
     augment_batch, draw_augment_params,
 )
@@ -144,16 +157,10 @@ class Trainer:
     # -- setup ------------------------------------------------------------
 
     def init_state(self) -> TrainState:
-        s = self.settings
         model, _ = build_model(
-            self.model_name, num_classes=s.label_count,
+            self.model_name, num_classes=self.settings.label_count,
             generator=torch.Generator().manual_seed(self.seed),
-            spectrogram_length=s.spectrogram_length,
-            num_log_mel_features=s.num_log_mel_features,
-            spectrogram_frequencies=s.spectrogram_frequencies,
-            desired_samples=s.desired_samples,
-            window_size_samples=s.window_size_samples,
-            window_stride_samples=s.window_stride_samples)
+            **settings_geometry(self.settings))
         model.to(self.device)
         if self.mesh.size > 1:
             use_mesh(model, self.mesh)
@@ -171,11 +178,18 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------
 
+    def _require_training(self) -> None:
+        if "training" not in self.dataset.partitions:
+            raise ValueError(
+                "the dataset holds no training partition: this trainer is "
+                "in streaming mode; use train_step_stream / fit_streaming")
+
     def draw_batch(self, pseudo_frequency: Optional[float] = None,
                    generator: Optional[torch.Generator] = None) -> Draws:
         """Sample ids and augmentation parameters for one training batch,
         from ``generator`` (default: the trainer's); ``pseudo_frequency``
         defaults to the augment config's."""
+        self._require_training()
         ds = self.dataset
         g = self.generator if generator is None else generator
         if pseudo_frequency is None:
@@ -238,7 +252,7 @@ class Trainer:
         """``steps`` train steps; each metric stacked to shape [steps].
 
         The JAX ``train_many`` is one ``lax.scan`` program; here it is a
-        loop of eager steps, the same updates, until ROADMAP A5a replays
+        loop of eager steps, the same updates, until ROADMAP S1 replays
         it as one CUDA graph.
         """
         out = [self.train_step(state, pseudo_frequency)
@@ -267,8 +281,38 @@ class Trainer:
         in place.
         """
         if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(self.seed + 7)
+            generator = self._generator(7)
+        return self._recalibrate(
+            state, num_batches, generator, lambda: self.build_batch(
+                self.draw_batch(pseudo_frequency, generator)))
+
+    def recalibrate_batch_stats_stream(self, state: TrainState, loader,
+                                       num_batches: int = 16,
+                                       generator: Optional[
+                                           torch.Generator] = None,
+                                       ) -> TrainState:
+        """``recalibrate_batch_stats`` over ``num_batches`` batches of
+        ``loader`` (a ``HostPrefetchLoader``), each augmented as a
+        streamed step augments it, from ``generator`` (default: a fresh
+        one seeded with ``seed + 9``, as the JAX trainer's key)."""
+        if generator is None:
+            generator = self._generator(9)
+
+        def streamed():
+            wav, labels, silence = next(loader)
+            return self.build_stream_batch(
+                wav, self.draw_stream(labels, silence, generator))
+
+        return self._recalibrate(state, num_batches, generator, streamed)
+
+    def _generator(self, offset: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self.seed + offset)
+        return g
+
+    def _recalibrate(self, state: TrainState, num_batches: int,
+                     generator: torch.Generator,
+                     next_input: Callable[[], Any]) -> TrainState:
         model = state.model
         model.train()
         dtype = at_least_float32(next(model.parameters())).dtype
@@ -276,8 +320,7 @@ class Trainer:
             if not stats:
                 return state
             for _ in range(num_batches):
-                d = self.draw_batch(pseudo_frequency, generator)
-                x = self.build_batch(d)
+                x = next_input()
                 model(tuple(t.to(dtype) for t in x) if isinstance(x, tuple)
                       else x.to(dtype), generator)
         for bn, batches in stats.items():
@@ -285,6 +328,94 @@ class Trainer:
             bn.running_mean.copy_(torch.stack(means).mean(0))
             bn.running_var.copy_(torch.stack(variances).mean(0))
         return state
+
+    # -- streaming ------------------------------------------------------
+
+    def draw_stream(self, labels: torch.Tensor, is_silence: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> Draws:
+        """The augmentation draws of a streamed batch of ``len(labels)``
+        clips, from ``generator`` (default: the trainer's). The batch is
+        its own bank: ``file_ids`` is ``arange(B)``."""
+        g = self.generator if generator is None else generator
+        b = labels.shape[0]
+        shifts, fg_vol, bg_pos, bg_vol = draw_augment_params(
+            g, is_silence, self.augment, self.dataset.background, b,
+            self.settings.desired_samples)
+        return Draws(torch.arange(b, device=self.device), labels,
+                     is_silence, shifts, fg_vol, bg_pos, bg_vol)
+
+    def build_stream_batch(self, wav: torch.Tensor, d: Draws):
+        """Augment + featurize a streamed batch on the device: int16
+        [B, T] through the decode+augment kernel with the batch as its
+        bank (one launch). A float32 batch already scaled (int16 clips
+        over 32768, as the JAX step accepts) goes back to int16 first,
+        exactly, since the scale is a power of two, and takes the same
+        kernel with the same draws; one off the int16 grid raises."""
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                "streaming trains on one rank; over several ranks it is "
+                "not ported yet (ROADMAP A10a)")
+        if wav.dtype != torch.int16:
+            scaled = wav.float() * INT16_DECODE_SCALE
+            grid = scaled.round().clamp(-32768, 32767)
+            if not torch.equal(grid, scaled):
+                raise ValueError("a float32 streamed batch must be int16 "
+                                 "clips divided by 32768")
+            wav = grid.to(torch.int16)
+        wav = decode_augment(wav, self._bg_flat, d.file_ids, d.shifts,
+                             d.fg_vol, d.bg_pos, d.bg_vol)
+        return self.frontend.features(wav, self.spec.representation)
+
+    def train_step_stream(self, state: TrainState, wav: torch.Tensor,
+                          labels: torch.Tensor, is_silence: torch.Tensor,
+                          ) -> Dict[str, torch.Tensor]:
+        """One update from a streamed batch (loop.py:331-353); updates
+        ``state`` in place."""
+        d = self.draw_stream(labels, is_silence)
+        return self._update_step(state, self.build_stream_batch(wav, d),
+                                 labels)
+
+    def train_many_stream(self, state: TrainState, wavs, labels,
+                          is_silence) -> Dict[str, torch.Tensor]:
+        """K streamed updates from K batches (``wavs`` [K, B, T] or a
+        sequence of K [B, T], ``labels`` and ``is_silence`` likewise): a
+        loop of ``train_step_stream``, as ``train_many`` is of
+        ``train_step``; each metric stacked to shape [K]."""
+        out = [self.train_step_stream(state, w, y, s)
+               for w, y, s in zip(wavs, labels, is_silence)]
+        return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+    def fit_streaming(self, state: TrainState, loader, steps: int,
+                      log_every: int = 0, steps_per_dispatch: int = 1,
+                      ) -> Tuple[TrainState, Dict[str, list]]:
+        """``steps`` updates from ``loader`` (a ``HostPrefetchLoader``,
+        whose producer decodes and copies while the card trains), one
+        ``train_step_stream`` per batch. ``steps_per_dispatch`` is the JAX
+        trainer's streamed steps per XLA dispatch; eager steps have no
+        dispatch to share, so here it changes nothing (until ROADMAP S1
+        makes K steps one CUDA graph). Returns the state and the history:
+        the last step's ``loss`` and ``categorical_accuracy`` (and every
+        ``log_every`` steps'), and ``clips_per_sec`` over the whole call,
+        timed to the read of the last step's metrics, which waits for
+        the device."""
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        history: Dict[str, list] = {}
+        t0 = time.perf_counter()
+        metrics = None
+        for step in range(1, steps + 1):
+            metrics = self.train_step_stream(state, *next(loader))
+            if log_every and step % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                print(f"  stream step {step}/{steps}: {m}")
+                for k, v in m.items():
+                    history.setdefault(k, []).append(v)
+        if metrics is not None:
+            for k, v in metrics.items():
+                history.setdefault(k, []).append(float(v))
+        history["clips_per_sec"] = [
+            steps * self.batch_size / max(time.perf_counter() - t0, 1e-9)]
+        return state, history
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, fids: torch.Tensor,
@@ -360,7 +491,7 @@ class Trainer:
         (``recalibrate_batch_stats``, on a generator of its own per
         epoch). ``steps_per_dispatch`` is the JAX trainer's steps per XLA
         dispatch: here it runs that many eager steps per ``train_many``
-        call, the same updates, until ROADMAP A5a makes it one CUDA graph.
+        call, the same updates, until ROADMAP S1 makes it one CUDA graph.
 
         Returns the state and the history: per epoch ``loss`` and
         ``categorical_accuracy`` (of the epoch's last step),
@@ -371,6 +502,7 @@ class Trainer:
         """
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
+        self._require_training()
         if steps_per_epoch is None:
             steps_per_epoch = max(
                 1, self.dataset.set_size("training") // self.batch_size)
@@ -394,10 +526,9 @@ class Trainer:
             logs["clips_per_sec"] = (steps_per_epoch * self.batch_size
                                      / train_time)
             if bn_recalibration_batches > 0:
-                g = torch.Generator(device=self.device)
-                g.manual_seed(self.seed + 100_000 + epoch)
                 state = self.recalibrate_batch_stats(
-                    state, bn_recalibration_batches, g, pf)
+                    state, bn_recalibration_batches,
+                    self._generator(100_000 + epoch), pf)
             conf, val_loss = self.evaluate(state)
             logs["val_loss"] = val_loss
             logs["val_categorical_accuracy"] = M.accuracy(conf)

@@ -3,9 +3,9 @@
 Confusion matrices accumulate on the device (scatter-add) and render to
 the same two text reports the reference writes (``confusion_matrix.txt``
 for all words, ``wanted_confusion_matrix.txt`` for the wanted-collapsed
-view, callbacks.py:45-83). The JAX package's ``TensorBoardCallback``
-needs its event writer (``utils/tb_events.py``) and is not ported yet
-(ROADMAP A).
+view, callbacks.py:45-83), and ``TensorBoardCallback`` writes each
+epoch's numeric metrics to a TensorBoard event file through the port's
+copy of the pure-Python event writer (``utils/tb_events.py``).
 """
 
 from __future__ import annotations
@@ -76,6 +76,29 @@ def render_confusion(conf: np.ndarray, names: List[str]) -> str:
             f"{int(conf[i, j]):>{width}d}" for j in range(len(names)))
         lines.append(row)
     return "\n".join(lines)
+
+
+class TensorBoardCallback:
+    """Writes every finite numeric epoch metric to a TensorBoard event
+    file in ``logdir`` (the reference's TensorBoard callback,
+    train.py:64), one event per epoch, its step the epoch, as Keras
+    writes its per-epoch scalars."""
+
+    def __init__(self, logdir: str):
+        from speech_recognition_tpu_torch.utils.tb_events import (
+            TBEventWriter,
+        )
+        self.writer = TBEventWriter(logdir)
+
+    def on_epoch_end(self, epoch, state, logs):
+        scalars = {k: float(v) for k, v in logs.items()
+                   if isinstance(v, (int, float)) and np.isfinite(v)}
+        self.writer.add_scalars(epoch, scalars)
+        self.writer.flush()
+        return None
+
+    def close(self):
+        self.writer.close()
 
 
 class ConfusionReport:

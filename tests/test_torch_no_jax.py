@@ -2,8 +2,9 @@
 kernel build logic.
 
 The no-jax check runs in a subprocess with ``JAX_PLATFORMS`` removed and
-``sys.modules`` entries for jax, flax, optax and speech_recognition_tpu
-set to None, so that any import of them raises.
+``sys.modules`` entries for jax, flax, optax, speech_recognition_tpu and
+h5py set to None, so that any import of them raises: the card's machine
+has no h5py, and every module of the port must import there.
 """
 
 import os
@@ -23,7 +24,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 NO_JAX_SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "speech_recognition_tpu"):
+for name in ("jax", "flax", "optax", "speech_recognition_tpu", "h5py"):
     sys.modules[name] = None
 import torch
 torch.set_num_threads(1)
@@ -38,7 +39,11 @@ new = {"bench", "labels", "data.wav", "data.index", "data.hard_corpus",
        "tools.pseudo", "tools.vote", "tools.blend", "tools.convert",
        "tools.make_submission", "tools.create_tta_set",
        "tools.pseudo_labels", "tools.evaluate", "tools.bench_infer",
-       "models.zoo", "models.layers", "models.convert", "ops.kernels.build"}
+       "models.zoo", "models.layers", "models.convert", "ops.kernels.build",
+       "models.keras_order", "models.keras_order_manifest",
+       "export.keras_import", "export.aot", "data.prefetch",
+       "utils.tb_events", "tools.import_checkpoint", "tools.freeze",
+       "tools.run_edge_inference", "tools.bench_streaming", "tools.train"}
 assert new <= walked, new - walked
 import chip_smoke  # noqa: F401
 from speech_recognition_tpu_torch.config import prepare_model_settings
@@ -78,7 +83,7 @@ model, _ = build_model("conv_1d_top_down", num_classes=12)
 assert model.eval()(torch.zeros(2, 16000)).shape == (2, 12)
 loaded = [n for n in sys.modules if sys.modules[n] is not None
           and n.split(".")[0] in ("jax", "flax", "optax",
-                                  "speech_recognition_tpu")]
+                                  "speech_recognition_tpu", "h5py")]
 assert not loaded, loaded
 print("NO_JAX_OK")
 """
