@@ -25,14 +25,19 @@ with the host compiler at its first use) and drives these paths:
   models, the Inceptions, the residual family, the MFCC MLPs and 2-D
   convs, and the BiGRU models), at its golden's feature geometry,
   against its parameter-count golden, its f32 logits on the card against
-  the CPU on the same ``Frontend`` features, then 10 bf16 train steps
+  the CPU on the same ``Frontend`` features, then 5 bf16 train steps
   through ``Trainer`` at batch 384 (ms/step and clips/s by CUDA events,
   peak memory), checking finite losses, one decode+augment launch per
   step and the kernel against its plain version on one of the model's
   draws;
 - separable block (``[separable]``): holds the fused forward kernel, in
   its ``fuse`` and ``fold`` variants, against its plain version at the
-  flagship's 11 trunk shapes at batch 384 in bf16 and f32, then runs the
+  flagship's 11 trunk shapes at batch 384 in bf16 and f32 (a y element
+  out of tolerance is printed with both values and the plain version's
+  f32, f64 and absolute sums), runs the T=11 512->512 bf16 case 200
+  times in each variant and checks that the kernel's y is the same bit
+  for bit in every run (printing how often the plain version's is not,
+  and both y's sha256), then runs the
   block benchmark (``benchmark_separable_blocks``) and checks that it
   launched both variants; prints each shape's ``fuse`` and ``fold`` time
   against its bound, the time of the pointwise product alone in cuBLAS
@@ -59,9 +64,12 @@ with the host compiler at its first use) and drives these paths:
   the last bit) and takes the ``[kernel]`` phase's readings of it at
   [192, 16000], one rank at a time,
   holds a 2-rank step in f32 and in f64 against one process on the batch,
-  trains 20 bf16 steps at global batch 384 and sweeps validation; the
-  parent checks that the kernel launched once per step on every rank,
-  that the losses and the parameters are the same on both ranks;
+  and a 2-rank streamed step in f32 (each rank's int16 rows its bank:
+  decode+augment on them against its plain version to the last bit, the
+  features equal to the one process's rows), trains 20 bf16 steps at
+  global batch 384 and sweeps validation; the parent checks that the
+  kernel launched once per step on every rank, that the losses and the
+  parameters are the same on both ranks;
 - the accuracy signal (``[fit]``): holds the ``Frontend`` (f32, TF32
   off) and ``conv_1d_spec``'s logits on the card against the CPU, writes
   the hard corpus at the calibration defaults to a temporary directory
@@ -87,6 +95,13 @@ with the host compiler at its first use) and drives these paths:
   validation WAVs (archive bytes, batch-1 ms/sample) and holds the float32
   archive's probabilities against the eager ``Predictor`` (f32, TF32 off)
   to 1e-5 and the int8 archive's against the float32 one's to 0.05;
+- training over ranks (``[dp-train]``, after ``[train]`` on its corpus):
+  ``torchrun --nproc_per_node 2 -m speech_recognition_tpu_torch.tools.
+  train`` (the flagship at global batch 384) in bank mode, then with
+  ``--stream`` and BN re-estimation, 2 epochs of 2 steps each; checks
+  that both ranks print the same figures every epoch, each rank's
+  decode+augment launches, and that rank 0 alone wrote the jsonl log,
+  the reports, the TensorBoard file and a checkpoint that loads;
 - the serving path (``[infer]``): holds the TTA ``Predictor`` of the
   flagship and ``conv_1d_spec``, in its three modes, and ``time_stretch``
   on the card against the CPU (f32; the Predictor turns TF32 off);
@@ -102,9 +117,13 @@ with the host compiler at its first use) and drives these paths:
   epochs on train plus the pseudo-labels and checks that pseudo rows
   were drawn and that decode+augment launched once per train step and
   per BN batch, and holds it against its plain version on the draw with
-  the most pseudo rows (to the last bit); then runs
+  the most pseudo rows (to the last bit); ``[dp-infer]``: the TTA
+  submission again over 2 ranks (``torchrun ... tools.make_submission
+  --data_parallel on``), its files checked and its probabilities held
+  against one process's to 1e-5; then runs
   ``tools.bench_infer`` on the flagship at batch 384 over 7,777 WAVs,
-  with TTA and without, and echoes its line; then times the native batch
+  with TTA and without, and with TTA over 2 ranks under torchrun (the
+  sweep sharded), and echoes its line; then times the native batch
   WAV decoder (``csrc/wavio.cc``, on its default threads and on one)
   against its numpy version over those files and checks that the rows
   are equal;
@@ -114,7 +133,16 @@ with the host compiler at its first use) and drives these paths:
   host seconds by part, the device's busy and idle share and the peak
   memory; checks finite losses and one decode+augment launch per step,
   and holds the kernel against its plain version on a streamed batch,
-  its own bank (to the last bit);
+  its own bank (to the last bit); then the same bench over 2 ranks under
+  torchrun (each rank's loader over its shard, 192 rows a rank), its
+  clips/s beside the one rank's;
+- profiling (``[profile]``): ``tools.profile_step`` on the flagship, its
+  ``torch.profiler`` trace read back by ``summarize_trace``: device busy
+  per step, the op classes and the top kernels, one decode+augment per
+  traced step;
+- the tools (``[tools]``): ``tools.model_info`` over all 25 models on the
+  card (parameters, bytes, FLOPs by ``FlopCounterMode``) and
+  ``tools.bench_zoo`` over two models;
 - the bench (``[bench]``): runs ``python -m
   speech_recognition_tpu_torch.bench`` in a child at the full-corpus
   scale (3 reps of 100 steps, no accuracy signal), checks that its first
@@ -122,7 +150,9 @@ with the host compiler at its first use) and drives these paths:
   it launched decode+augment once per train step, and echoes the line
   and its diagnostics.
 
-Any failure, on any rank, raises and exits non-zero; without a CUDA
+When the ranks share one card (gloo), no time of the phases over ranks
+is a measure of scaling, and the log says so. Any failure, on any rank,
+raises and exits non-zero; without a CUDA
 device it exits non-zero before printing any result. The last two lines
 of standard output are a JSON record of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over
@@ -168,12 +198,18 @@ DEVICE_TRACES = 3
 L2_FLUSH_BYTES = 64 << 20
 DECODE_KERNEL = r"decode_augment_kernel"
 KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd")
-# separable block, kernel against its plain version on the same inputs.
-# y: f32 (TF32 off) differs only in the order of the f32 sums of up to
-# 3 x 512 products, |y| < ~10; bf16 rounds at the same points as the plain
-# version, so a y differs by at most the one bf16 step that a different
-# f32 sum can round it to.
-SEP_Y_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# separable block, kernel against its plain version on the same inputs:
+# y (rtol of |plain|, atol). y in f32 (TF32 off) differs only in the order
+# of the f32 sums of up to 3 x 512 products, |y| < ~10. In bf16 the two f32
+# sums may round to neighbouring bf16 values, one step apart, which rtol
+# 2^-7 always admits; more than one step is a miss, whose elements are
+# printed with both values and the plain version's sums (ROADMAP C5).
+SEP_Y_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (0.0, 1e-4)}
+# the case of ROADMAP C5 (T=11, 512->512, s1, VALID, bf16, both variants)
+# run again and again: every run's y the first run's, bit for bit, and
+# within the tolerance
+SEP_REPEAT_SHAPE = (11, 512, 512, 1, "VALID")
+SEP_REPEATS = 200
 # s1, s2: f32 sums over 384 x To rows taken with atomics in another
 # order, per channel relative to sum|y| (s1) and to s2.
 SEP_STATS_RTOL = 1e-4
@@ -227,7 +263,7 @@ FIT_ACC_GATE = 0.8309
 FRONTEND_RTOL = {"spectrogram": 1e-5, "log_mel": 1e-4, "mfcc": 1e-4}
 SPEC_LOGITS_RTOL = 1e-3
 # the [bench] phase: the port's bench at the full-corpus scale, 3 reps of
-# 100 steps, without the accuracy signal
+# 100 steps (the least it takes), without the accuracy signal
 BENCH_ENV = {"BENCH_SCALE_ORDER": "full_corpus", "BENCH_SMALL": "1",
              "BENCH_SPD": "100", "BENCH_SKIP_ACC": "1"}
 BENCH_TIMEOUT_S = 600
@@ -279,14 +315,18 @@ ZOO_PARAMS = {
     "xception_with_attention": 2_264_654,
 }
 ZOO_MEL_40 = ("simple", "snn", "conv_2d", "conv_2d_mobile", "conv_2d_fast")
-ZOO_WARMUP, ZOO_STEPS = 2, 8
-ZOO_TRACED = 3      # steps traced by torch.profiler after the timed ones
+# cut from 2 + 8 steps and 3 traced for the phases over ranks
+ZOO_WARMUP, ZOO_STEPS = 1, 4
+ZOO_TRACED = 2      # steps traced by torch.profiler after the timed ones
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
 # [stream]: tools.bench_streaming at its defaults (2,048 WAVs written as
 # the JAX script writes them), 2 warm-up + 30 timed + 5 traced steps
 STREAM_ARGS = ["--batch_size", str(BATCH), "--warmup", "2", "--steps", "30",
                "--trace_steps", "5"]
+# and over 2 ranks under torchrun, shorter and untraced
+STREAM_DP_ARGS = ["--batch_size", str(BATCH), "--warmup", "1", "--steps",
+                  "10", "--trace_steps", "0"]
 # [train]: tools.train on [fit]'s corpus, then the edge export
 TRAIN_EPOCHS = 2
 TRAIN_BN_BATCHES = 8
@@ -296,6 +336,23 @@ EDGE_INT8_BYTES = 2_000_000     # tests/test_edge_budget.py's int8 bound
 EDGE_CHECK_CLIPS = 32
 EDGE_PROB_ATOL = 1e-5           # an archive vs the eager Predictor
 EDGE_INT8_ATOL = 0.05           # int8 archive vs the f32 one
+
+# the phases over ranks under torchrun ([dp-train], [stream]'s and
+# [infer]'s runs over 2 ranks, [dp-infer]): the ranks and their limit
+TORCHRUN_RANKS = 2
+TORCHRUN_TIMEOUT_S = 400
+# [dp-train]: tools.train over 2 ranks on [fit]'s corpus, 2 epochs of 2
+# steps at global batch 384, bank then --stream with BN re-estimation
+DP_TRAIN_ARGS = ["--epochs", "2", "--steps_per_epoch", "2"]
+DP_TRAIN_BN_BATCHES = 2
+# [dp-infer]: the 2-rank submission's probabilities against one
+# process's (the JAX mesh test's atol)
+DP_INFER_ATOL = 1e-5
+# [profile]: tools.profile_step on the flagship; [tools]: bench_zoo
+PROFILE_ARGS = ["--warmup", "5", "--steps", "10"]
+TOOLS_ZOO_MODELS = [MODEL, "conv_2d_fast"]
+TOOLS_ZOO_ARGS = ["--steps", "10", "--warmup", "3"]
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -470,8 +527,9 @@ def timed_build(name: str):
 
 
 def compare_block(got, want, dtype):
-    """(max abs err of y, y elements out of tolerance, worst relative
-    error of s1, of s2) of the kernel's ``got`` against ``want``."""
+    """(max abs err of y, the y elements out of tolerance as a bool mask,
+    worst relative error of s1, of s2) of the kernel's ``got`` against
+    ``want``."""
     y, s1, s2 = got
     yw, s1w, s2w = want
     if y.shape != yw.shape or y.dtype != dtype or not torch.isfinite(y).all():
@@ -480,11 +538,33 @@ def compare_block(got, want, dtype):
                            f"non-finite values")
     rtol, atol = SEP_Y_TOL[dtype]
     d = (y.float() - yw.float()).abs()
-    bad = int((d > atol + rtol * yw.float().abs()).sum())
+    bad = d > atol + rtol * yw.float().abs()
     scale1 = yw.float().abs().sum((0, 1)).clamp_min(1e-30)
     e1 = float(((s1 - s1w).abs() / scale1).max())
     e2 = float(((s2 - s2w).abs() / s2w.clamp_min(1e-30)).max())
     return float(d.max()), bad, e1, e2
+
+
+def y_misses(y, yw, bad, ins, limit: int = 8, **kw) -> list:
+    """The first ``limit`` y elements that ``bad`` marks: for each its
+    index, the kernel's and the plain version's value, and the plain
+    version's sum before its rounding (f32), in float64 and of its terms'
+    magnitudes (``sum_terms`` on the same inputs ``ins`` and flags)."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        separable_block as S,
+    )
+
+    kw = {k: v for k, v in kw.items() if k != "emit_stats"}
+    s_plain, abs_sum, exact, n = S.sum_terms(*ins, **kw)
+    out = []
+    for at in torch.nonzero(bad)[:limit].tolist():
+        at = tuple(at)
+        out.append({"at": list(at), "y": float(y[at]),
+                    "y_plain": float(yw[at]),
+                    "plain_f32_sum": float(s_plain[at]),
+                    "f64_sum": float(exact[at]),
+                    "abs_sum": float(abs_sum[at]), "n": n})
+    return out
 
 
 def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
@@ -517,6 +597,8 @@ def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
     failures = []
 
     def check(label, variant, dtype, ins, **kw):
+        """(y max abs err, s1 err, s2 err, the kernel's y, the plain
+        version's y); a miss goes to ``failures`` with its elements."""
         fold = variant == "fold"
         got = S.fused_separable_block(*ins, fold_weights=fold, **kw)
         want = S.separable_block_plain(*ins, fold_weights=fold, **kw)
@@ -528,11 +610,14 @@ def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
             got, want = (got, none, none), (want, none, none)
         err, bad, e1, e2 = compare_block(got, want, dtype)
         worst[variant] = max(worst[variant], err)
-        if bad or e1 > SEP_STATS_RTOL or e2 > SEP_STATS_RTOL:
+        n_bad = int(bad.sum())
+        if n_bad or e1 > SEP_STATS_RTOL or e2 > SEP_STATS_RTOL:
+            misses = y_misses(got[0], want[0], bad, ins, fold_weights=fold,
+                              **kw) if n_bad else []
             failures.append(f"{label} {variant} {dtype}: y max abs err "
-                            f"{err:.3g} ({bad} out of tolerance), s1 {e1:.3g},"
-                            f" s2 {e2:.3g}")
-        return err, e1, e2
+                            f"{err:.3g} ({n_bad} out of tolerance: "
+                            f"{misses}), s1 {e1:.3g}, s2 {e2:.3g}")
+        return err, e1, e2, got[0], want[0]
 
     for t, cin, cout, stride, padding in SEPARABLE_SHAPES:
         x, w_dw, w_pw, a, b = separable_block_inputs(
@@ -541,14 +626,43 @@ def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
         for dtype in (torch.bfloat16, torch.float32):
             ins = [v.to(dtype) for v in (x, w_dw, w_pw)] + [a, b]
             for variant in ("fuse", "fold"):
-                err, e1, e2 = check(f"T={t} {cin}->{cout} s{stride}", variant,
-                                    dtype, ins, stride=stride,
-                                    padding=padding)
+                err, e1, e2, _, _ = check(
+                    f"T={t} {cin}->{cout} s{stride}", variant, dtype, ins,
+                    stride=stride, padding=padding)
                 parts.append(f"{variant} {str(dtype)[6:]} {err:.3g}"
                              f"/{max(e1, e2):.2g}")
         torch.cuda.synchronize()
         log(f"[separable] T={t:3d} {cin}->{cout} s{stride} {padding:5s} "
             f"B={BATCH}: y max abs err / stats rel err: " + ", ".join(parts))
+    # the case of ROADMAP C5 again and again, each run held to the
+    # tolerance: a race in the kernel, or a plain version whose cuBLAS
+    # sums change from run to run, would show as a y that is not the
+    # first run's
+    t, cin, cout, stride, padding = SEP_REPEAT_SHAPE
+    ins = separable_block_inputs(t, cin, cout, batch=BATCH,
+                                 dtype=torch.bfloat16, device=device)
+    label = f"repeat T={t} {cin}->{cout} s{stride}"
+    for variant in ("fuse", "fold"):
+        first, differ = None, {"kernel": 0, "plain": 0}
+        for _ in range(SEP_REPEATS):
+            *_, y, yw = check(label, variant, torch.bfloat16, ins,
+                              stride=stride, padding=padding)
+            if first is None:
+                first = (y, yw)
+            differ["kernel"] += not torch.equal(y, first[0])
+            differ["plain"] += not torch.equal(yw, first[1])
+        torch.cuda.synchronize()
+        sha = [hashlib.sha256(v.view(torch.int16).cpu().numpy().tobytes())
+               .hexdigest()[:16] for v in first]
+        log(f"[separable] {label} {padding} B={BATCH} {variant} bf16, "
+            f"{SEP_REPEATS} runs: the kernel's y differs from its first "
+            f"run's in {differ['kernel']}, the plain version's in "
+            f"{differ['plain']}; sha256 of the first y: kernel {sha[0]}, "
+            f"plain {sha[1]}")
+        if differ["kernel"]:
+            failures.append(f"{label} {variant}: the kernel's y differs "
+                            f"from its first run's in {differ['kernel']} "
+                            f"of {SEP_REPEATS} runs on the same inputs")
     # a stride-2 SAME shape without the prologue, and without the
     # statistics
     t, cin, cout, stride, padding = SEPARABLE_SHAPES[1]
@@ -1121,6 +1235,87 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _rank_streams(log_dir: str, kind: str) -> list:
+    """Each rank's ``kind`` ("stdout" or "stderr") as torchrun's
+    ``--redirects`` wrote it under ``log_dir``, rank r's at index r ("" for
+    a rank that left no file)."""
+    import glob
+
+    streams = []
+    for rank in range(TORCHRUN_RANKS):
+        paths = glob.glob(os.path.join(log_dir, "*", "attempt_*", str(rank),
+                                       f"{kind}.log"))
+        if len(paths) > 1:
+            raise RuntimeError(f"torchrun left {paths}")
+        streams.append(open(paths[0]).read() if paths else "")
+    return streams
+
+
+def torchrun(module: str, args, cwd, tag: str):
+    """``torchrun --nproc_per_node 2 -m module args`` in ``cwd``, the
+    ranks on this machine's cards (NCCL with a card each, gloo when they
+    share one); returns (stdouts, stderrs, seconds), the lists holding
+    each rank's own stream, rank r's at index r. torchrun writes each
+    rank's streams to files of their own, so that no rank's line lands
+    inside another's, as it can in one shared pipe. A failed rank fails
+    the phase; at the time limit, and after it ends, every process of its
+    session is killed."""
+    import signal
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory(prefix="srt_torchrun_") as logs:
+        # --standalone: torchrun's own store on localhost, on a free port
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--standalone", "--nproc_per_node", str(TORCHRUN_RANKS),
+               "--redirects", "3", "--log-dir", logs, "-m", module, *args]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=str(cwd), env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=TORCHRUN_TIMEOUT_S)
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        secs = time.perf_counter() - t0
+        outs, errs = _rank_streams(logs, "stdout"), _rank_streams(logs,
+                                                                 "stderr")
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{tag} torchrun -m {module} exited {proc.returncode}: "
+            f"{out[-1000:]} {err[-2000:]} " + " ".join(
+                f"rank {r}: {o[-1000:]} {e[-3000:]}"
+                for r, (o, e) in enumerate(zip(outs, errs))))
+    return outs, errs, secs
+
+
+def step_parity(got, want, model, ref_grads, tol):
+    """A W-rank step (its metrics ``got``, ``model`` with its gradients)
+    against one process's (``want``, ``ref_grads`` by name): ((loss rel
+    err, the parameter of the worst median, that median, the parameter
+    of the worst max, that max), whether all are within ``tol`` = (loss,
+    median, max)), each gradient error over its reference's max |value|."""
+    medians, maxima = {}, {}
+    for name, p in model.named_parameters():
+        g = ref_grads[name]
+        e = (p.grad - g).abs() / g.abs().max().clamp_min(1e-30)
+        medians[name], maxima[name] = float(e.median()), float(e.max())
+    loss_err = abs(float(got["loss"]) - float(want["loss"])) \
+        / abs(float(want["loss"]))
+    worst = max(maxima, key=maxima.get)
+    worst_median = max(medians, key=medians.get)
+    parity = (loss_err, worst_median, medians[worst_median], worst,
+              maxima[worst])
+    return parity, (loss_err <= tol[0] and parity[2] <= tol[1]
+                     and parity[4] <= tol[2])
+
+
 def dp_rank(rank: int, world: int, init_method: str, backend: str,
             results) -> None:
     """One rank of the [dp] phase (a spawned process). It prints nothing:
@@ -1231,24 +1426,49 @@ def dp_rank(rank: int, world: int, init_method: str, backend: str,
                                 d.labels)
         ref_grads[dtype] = {n: p.grad.double() for n, p in
                             ref_state.model.named_parameters()}
-        medians, maxima = {}, {}
-        for name, p in dp_state.model.named_parameters():
-            g = ref_grads[dtype][name]
-            e = (p.grad - g).abs() / g.abs().max().clamp_min(1e-30)
-            medians[name], maxima[name] = float(e.median()), float(e.max())
-        loss_err = abs(float(got["loss"]) - float(want["loss"])) \
-            / abs(float(want["loss"]))
         name = str(dtype)[6:]
-        worst = max(maxima, key=maxima.get)
-        worst_median = max(medians, key=medians.get)
-        out["parity"][name] = (loss_err, worst_median, medians[worst_median],
-                               worst, maxima[worst])
-        loss_tol, median_tol, max_tol = DP_TOL[dtype]
-        if loss_err > loss_tol or medians[worst_median] > median_tol \
-                or maxima[worst] > max_tol:
+        out["parity"][name], ok = step_parity(
+            got, want, dp_state.model, ref_grads[dtype], DP_TOL[dtype])
+        if not ok:
             raise RuntimeError(f"rank {rank}: {world}-rank {name} step vs "
                                f"one process: {out['parity'][name]}")
         del dp_state, ref_state, got, want
+    # the streamed step: this rank's int16 rows of the global batch are
+    # its bank, against one process on the whole batch, in f32; and
+    # decode+augment on the rank's rows against its plain version
+    rows = mesh.rows(BATCH)
+    wav = ds.wav_bank[d.file_ids]
+    dp.generator.set_state(draw_state)
+    ref.generator.set_state(draw_state)
+    dp_state, ref_state = dp.init_state(), ref.init_state()
+    d_dp = dp.draw_stream(d.labels[rows], d.is_silence[rows])
+    d_ref = ref.draw_stream(d.labels, d.is_silence)
+    args_s = (wav[rows].contiguous(), bg, d_dp.file_ids, d_dp.shifts,
+              d_dp.fg_vol, d_dp.bg_pos, d_dp.bg_vol)
+    got = K.decode_augment(*args_s)
+    want = K.decode_augment_reference(*args_s)
+    torch.cuda.synchronize(device)
+    out["stream_max_abs_err"] = float((got - want).abs().max())
+    if got.shape != (BATCH // world, T) \
+            or out["stream_max_abs_err"] > KERNEL_ATOL:
+        raise RuntimeError(f"rank {rank}: decode_augment on the streamed "
+                           f"rows {tuple(got.shape)}: max abs err "
+                           f"{out['stream_max_abs_err']}")
+    x_dp = dp.build_stream_batch(wav[rows].contiguous(), d_dp)
+    x_ref = ref.build_stream_batch(wav, d_ref)
+    out["stream_rows_equal"] = bool(torch.equal(x_dp, x_ref[rows]))
+    got = dp._update_step(dp_state, x_dp, d.labels[rows])
+    want = ref._update_step(ref_state, x_ref, d.labels)
+    out["stream_parity"], ok = step_parity(
+        got, want, dp_state.model,
+        {n: p.grad for n, p in ref_state.model.named_parameters()},
+        DP_TOL[torch.float32])
+    if not out["stream_rows_equal"] or not ok:
+        raise RuntimeError(f"rank {rank}: {world}-rank streamed float32 "
+                           f"step vs one process: rows equal "
+                           f"{out['stream_rows_equal']}, "
+                           f"{out['stream_parity']}")
+    del dp_state, ref_state, got, want, wav, x_dp, x_ref
     # f32's own error, for scale: one process, f32 against f64
     out["f32_vs_f64"] = max(
         float(((g - ref_grads[torch.float64][n]).abs()
@@ -1361,6 +1581,19 @@ def dp_phase(card: str):
                 f"{tol[2]})")
         log(f"[dp] rank {r['rank']} one process, f32 against f64: worst "
             f"median gradient error / max |value| {r['f32_vs_f64']:.3g}")
+        loss_err, worst_median, median, worst, worst_err = \
+            r["stream_parity"]
+        tol = DP_TOL[torch.float32]
+        log(f"[dp] rank {r['rank']} float32 (TF32 off) {world}-rank "
+            f"streamed step, the rank's [{BATCH // world}, {T}] int16 rows "
+            f"its bank, vs one process on the global batch: features "
+            f"equal to the one process's rows {r['stream_rows_equal']}; "
+            f"decode_augment on the rank's rows vs plain max abs err "
+            f"{r['stream_max_abs_err']:.3g} (tol {KERNEL_ATOL}); loss rel "
+            f"err {loss_err:.3g} (tol {tol[0]}); gradient error / max "
+            f"|value|: worst median {median:.3g} in {worst_median} (tol "
+            f"{tol[1]}), worst max {worst_err:.3g} in {worst} (tol "
+            f"{tol[2]})")
     steps = STEPS + WARMUP
     expected = (NUM_VAL // BATCH) * BATCH
     for r in rs:
@@ -1487,9 +1720,10 @@ def zoo_phase(device, card: str, ds, settings) -> int:
     count against the JAX golden, its f32 logits on the card against the
     CPU on ``Frontend.features`` of 4 clips, the same features on both
     (TF32 off, BN statistics set to the features'; within LOGITS_ATOL,
-    absolute and relative to max |logit|), 10 bf16 train steps through
-    ``Trainer`` at batch 384 with finite losses and one decode+augment
-    launch each (timed by CUDA events over the last 8), the kernel
+    absolute and relative to max |logit|), ``ZOO_WARMUP + ZOO_STEPS``
+    bf16 train steps through ``Trainer`` at batch 384 with finite losses
+    and one decode+augment launch each (timed by CUDA events over the
+    last ``ZOO_STEPS``), the kernel
     against its plain version on one of the model's own draws, and the
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
     against the events' step. Returns the launches of decode+augment in
@@ -1791,6 +2025,45 @@ def stream_phase(card: str) -> int:
         f"step); kernel vs plain on a streamed batch [{BATCH}, {T}] as its "
         f"own bank: max abs err {err:.3g} (tol {KERNEL_ATOL}); phase "
         f"{time.perf_counter() - t0:.1f} s")
+    return launches, record["value"]
+
+
+def stream_ranks_run(card: str, one_rank: float) -> int:
+    """[stream] over 2 ranks: ``tools.bench_streaming`` under
+    ``torchrun`` (``STREAM_DP_ARGS``: 1 + 10 steps, untraced), each
+    rank's loader over its shard of the clips with B/2 rows, the steps
+    data-parallel; its clips/s beside the one rank's of this run. Checks
+    finite losses and one decode+augment launch per streamed step on each
+    rank. Returns the launches over both ranks."""
+    import tempfile
+
+    world = TORCHRUN_RANKS
+    with tempfile.TemporaryDirectory(prefix="srt_torch_stream_dp_") as td:
+        outs, errs, secs = torchrun(
+            "speech_recognition_tpu_torch.tools.bench_streaming",
+            STREAM_DP_ARGS, td, "[stream]")
+    record = json.loads(outs[0].strip().splitlines()[-1])
+    diag = json.loads(next(
+        line for line in errs[0].splitlines()
+        if line.startswith("diagnostics: "))[len("diagnostics: "):])
+    launches = diag["decode_augment_launches_all_ranks"]
+    if diag["ranks"] != world or not diag["losses_finite"] \
+            or not record["value"] > 0 \
+            or launches != world * diag["train_steps"]:
+        raise RuntimeError(f"[stream] {world} ranks: {record} {diag}")
+    shared = torch.cuda.device_count() < world
+    parts = diag["loader_s_per_step"]
+    log(f"[stream] {world} ranks under torchrun ({diag['batch_size']} "
+        f"global, {diag['batch_size'] // world} rows a rank from its shard "
+        f"of the WAVs): {record['value']:.1f} clips/s against one rank's "
+        f"{one_rank:.1f} in this run (x{record['value'] / one_rank:.3f}); "
+        f"rank 0: {diag['ms_per_step']:.3f} ms/step, loader host s/step "
+        f"decode {parts['decode_s']:.4f} copies {parts['copy_s']:.4f} "
+        f"waiting {parts['wait_s']:.4f}; decode_augment launches "
+        f"{launches} over both ranks; "
+        f"{secs:.1f} s with start-up"
+        + ("; the ranks share one card, so this is no measure of scaling"
+           if shared else "") + f" | {card}")
     return launches
 
 
@@ -2010,6 +2283,112 @@ def train_phase(device, card: str, root) -> int:
         f"f32 {int8_err:.3g} (tol {EDGE_INT8_ATOL}); phase "
         f"{time.perf_counter() - phase_t0:.1f} s")
     return sum(launches.values())
+
+
+def dp_train_phase(card: str, root) -> dict:
+    """The [dp-train] phase on [fit]'s corpus at ``root``: ``tools.train``
+    over 2 ranks under ``torchrun`` (the flagship at global batch 384),
+    in bank mode, then with ``--stream`` and BN re-estimation, each for 2
+    epochs of 2 steps in a working directory of its own. Checks that both
+    ranks print the same figures after each epoch (the step, the train
+    loss and the validation loss and accuracy, bit for bit), that each
+    rank launched decode+augment once per train step and per streamed BN
+    batch (and ``decode_augment_sharded`` once per bank step), and that
+    rank 0 alone wrote: one jsonl line and one report per epoch, one
+    TensorBoard file, and a best checkpoint that loads. Returns the
+    launches by kernel, summed over the ranks, each launch under one
+    kernel: the bank steps' under ``decode_augment_sharded``."""
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        default_backend,
+    )
+
+    world = TORCHRUN_RANKS
+    shared = torch.cuda.device_count() < world
+    log(f"[dp-train] tools.train over {world} ranks under torchrun, backend "
+        f"{default_backend(world)}, global batch {BATCH}"
+        + ("; the ranks share one card, so no time here measures scaling"
+           if shared else ""))
+    epochs, spe = int(DP_TRAIN_ARGS[1]), int(DP_TRAIN_ARGS[3])
+    common = ["--data_dirs", str(root), "--validation_percentage",
+              str(TRAIN_VALIDATION_PCT), *DP_TRAIN_ARGS]
+    totals = {"decode_augment": 0, "decode_augment_sharded": 0}
+    for mode, extra, want in (
+            ("bank", [], {"decode_augment": epochs * spe,
+                          "decode_augment_sharded": epochs * spe}),
+            ("stream", ["--stream", "--bn_recalibration_batches",
+                        str(DP_TRAIN_BN_BATCHES)],
+             {"decode_augment": epochs * (spe + DP_TRAIN_BN_BATCHES),
+              "decode_augment_sharded": 0})):
+        with tempfile.TemporaryDirectory(prefix=f"srt_torch_dp_{mode}_") \
+                as td:
+            outs, _, secs = torchrun(
+                "speech_recognition_tpu_torch.tools.train",
+                common + ["--experiment", mode] + extra, td, "[dp-train]")
+            out = "".join(outs)
+            lines = {}
+            for rank, epoch, rest in re.findall(
+                    r"^\[rank (\d+)/\d+\] epoch (\d+): (.*)$", out, re.M):
+                lines.setdefault(int(epoch), {})[int(rank)] = rest
+            if sorted(lines) != list(range(epochs)) or any(
+                    sorted(v) != list(range(world)) for v in lines.values()):
+                raise RuntimeError(f"[dp-train] {mode}: rank lines {lines}")
+            for epoch, by_rank in lines.items():
+                if len(set(by_rank.values())) != 1 \
+                        or f"step={spe * (epoch + 1)} " not in by_rank[0]:
+                    raise RuntimeError(f"[dp-train] {mode} epoch {epoch}: "
+                                       f"the ranks report {by_rank}")
+                loss = float(re.search(r" loss=(\S+)", by_rank[0]).group(1))
+                if not np.isfinite(loss):
+                    raise RuntimeError(f"[dp-train] {mode}: loss {loss}")
+            launched = {int(r): {"decode_augment": int(a),
+                                 "decode_augment_sharded": int(b)}
+                        for r, a, b in re.findall(
+                            r"\[rank (\d+)/\d+\] final: .* launches: "
+                            r"decode_augment=(\d+) "
+                            r"decode_augment_sharded=(\d+)", out)}
+            if sorted(launched) != list(range(world)) or any(
+                    v != want for v in launched.values()):
+                raise RuntimeError(f"[dp-train] {mode}: launches {launched},"
+                                   f" expected {want} on each rank")
+            work = Path(td)
+            jsonl = (work / f"logs_{mode}.jsonl").read_text().splitlines()
+            # the reports are rank 0's alone
+            reports = re.findall(r"^\[ep \d{3}\] ", outs[0], re.M)
+            if re.search(r"^\[ep \d{3}\] ", "".join(outs[1:]), re.M):
+                raise RuntimeError(f"[dp-train] {mode}: a rank other than "
+                                   f"0 printed a report: {outs[1:]}")
+            ckpt_dirs = sorted(work.glob("checkpoints_*"))
+            events = list((work / f"logs_{mode}").glob("events.*"))
+            best = (work / f"checkpoints_{mode}" / "BEST").read_text()
+            tree = torch.load(best, map_location="cpu", weights_only=True)
+            if len(jsonl) != epochs or len(reports) != epochs \
+                    or len(ckpt_dirs) != 1 or len(events) != 1 \
+                    or tree["step"] not in (spe, 2 * spe) or not all(
+                        torch.isfinite(t).all()
+                        for t in tree["model"].values()):
+                raise RuntimeError(
+                    f"[dp-train] {mode}: rank 0's files: {len(jsonl)} jsonl "
+                    f"lines, {len(reports)} reports, {ckpt_dirs}, {events},"
+                    f" checkpoint step {tree['step']}")
+        # the sharded wrapper's launches count in decode_augment's too:
+        # they go under decode_augment_sharded alone, as [dp]'s do
+        for v in launched.values():
+            totals["decode_augment"] += (v["decode_augment"]
+                                         - v["decode_augment_sharded"])
+            totals["decode_augment_sharded"] += v["decode_augment_sharded"]
+        log(f"[dp-train] {mode}: {epochs} epochs of {spe} steps in "
+            f"{secs:.1f} s (torchrun, start-up included); every epoch the "
+            f"ranks print the same figures: " + " | ".join(
+                f"epoch {e}: {by_rank[0]}" for e, by_rank in lines.items())
+            + f"; launches per rank {launched[0]}; rank 0 alone wrote "
+            f"{len(jsonl)} jsonl lines, {len(reports)} reports, one "
+            f"TensorBoard file and checkpoints_{mode}/ (best at step "
+            f"{tree['step']}, loads) | {card}")
+    return totals
 
 
 def stretch_signals() -> dict:
@@ -2270,6 +2649,33 @@ def serving_chain(device, td, root, card: str) -> int:
         raise RuntimeError(f"[infer] no-TTA probabilities vs the Predictor: "
                            f"{direct_err}")
 
+    # [dp-infer]: the TTA submission over 2 ranks under torchrun
+    prefix = str(td / "sub_dp")
+    outs, _, secs = torchrun(
+        "speech_recognition_tpu_torch.tools.make_submission",
+        common + ["--data_parallel", "on", "--out_prefix", prefix], td,
+        "[dp-infer]")
+    out = "".join(outs)
+    if f"data parallel: on, {TORCHRUN_RANKS} ranks" not in out \
+            or out.count("wrote:") != 1:
+        raise RuntimeError(f"[dp-infer] make_submission output: {out}")
+    dp_paths = {"wanted": f"{prefix}.csv",
+                "all": f"{prefix}_all_labels.csv",
+                "probs": f"{prefix}_all_labels_probs.csv",
+                "memmap": f"{prefix}_probs.uint8.memmap"}
+    dp_probs, _ = check_submission(dp_paths, names, int2label, "TTA")
+    dp_err = float(np.abs(dp_probs - probs["TTA"]).max())
+    log(f"[dp-infer] make_submission --data_parallel on over "
+        f"{TORCHRUN_RANKS} ranks (each decodes and predicts "
+        f"{INFER_BATCH // TORCHRUN_RANKS} rows of every batch of "
+        f"{INFER_BATCH}; the tail padded): rank 0 alone wrote the files; "
+        f"probabilities vs one process's TTA submission max abs err "
+        f"{dp_err:.3g} (tol {DP_INFER_ATOL}); {secs:.1f} s with start-up "
+        f"| {card}")
+    if not dp_err <= DP_INFER_ATOL:
+        raise RuntimeError(f"[dp-infer] 2-rank probabilities vs one "
+                           f"process: {dp_err}")
+
     wanted_csvs = [subs[m]["wanted"] for m in subs]
     pseudo_dir = td / "pseudo"
     stats = run_tool(pseudo_labels, [
@@ -2347,6 +2753,7 @@ def bench_infer_runs(td, card: str) -> None:
 
     from speech_recognition_tpu_torch.tools import bench_infer
 
+    one_rank = {}
     for extra in ([], ["--no_tta"]):
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
@@ -2367,6 +2774,28 @@ def bench_infer_runs(td, card: str) -> None:
             f"device {line['device_clips_per_sec']:.1f} clips/s, end to end "
             f"{line['end_to_end_clips_per_sec']:.1f} clips/s ("
             f"{time.perf_counter() - t0:.1f} s) | {card}")
+        one_rank[bool(extra)] = line["end_to_end_clips_per_sec"]
+
+    # the sweep with TTA over 2 ranks under torchrun, on the same tree
+    outs, _, secs = torchrun(
+        "speech_recognition_tpu_torch.tools.bench_infer",
+        ["--num_files", str(BENCH_INFER_FILES), "--keep_dir", str(td)],
+        td.parent, "[dp-infer]")
+    line = json.loads(outs[0].strip().splitlines()[-1])
+    if line["ranks"] != TORCHRUN_RANKS or not math.isfinite(
+            line["end_to_end_clips_per_sec"]) \
+            or line["end_to_end_files"] != BENCH_INFER_FILES:
+        raise RuntimeError(f"[dp-infer] bench_infer over ranks: {line}")
+    shared = torch.cuda.device_count() < TORCHRUN_RANKS
+    log(f"[dp-infer] bench_infer with TTA over {TORCHRUN_RANKS} ranks "
+        f"({BENCH_INFER_FILES} WAVs, each rank {384 // TORCHRUN_RANKS} rows "
+        f"of every batch of 384): end to end "
+        f"{line['end_to_end_clips_per_sec']:.1f} clips/s against one "
+        f"rank's {one_rank[False]:.1f} in this run "
+        f"(x{line['end_to_end_clips_per_sec'] / one_rank[False]:.3f}); "
+        f"{secs:.1f} s with start-up"
+        + ("; the ranks share one card, so this is no measure of scaling"
+           if shared else "") + f" | {card}")
 
 
 def wav_decoders(root, card: str) -> None:
@@ -2432,6 +2861,96 @@ def infer_phase(device, card: str) -> int:
         bench_infer_runs(Path(td) / "bench", card)
         wav_decoders(Path(td) / "bench", card)
     log(f"[infer] phase {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
+def profile_phase(card: str) -> int:
+    """The [profile] phase: ``tools.profile_step`` on the flagship at
+    batch 384 (bf16), its trace read back by ``summarize_trace``: the
+    device busy per step, the largest kernels and the op classes. Checks
+    that the trace holds one decode+augment kernel per traced step and
+    that the kernel launched once per step. Returns the launches."""
+    import tempfile
+
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.tools import profile_step
+
+    steps = int(PROFILE_ARGS[3])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="srt_torch_profile_") as td:
+        K.LAUNCHES = 0
+        summary = run_tool(profile_step, PROFILE_ARGS + ["--trace_dir", td],
+                           "[profile]", keep=lambda line: False)
+        launches = K.LAUNCHES
+    kernels = {n: m for n, m in summary["modules"].items()
+               if re.search(DECODE_KERNEL, n)}
+    count = sum(m["count"] for m in kernels.values())
+    if launches != steps + int(PROFILE_ARGS[1]) or count != steps \
+            or not summary["ms_per_step"] > 0:
+        raise RuntimeError(f"[profile] launches {launches}, decode_augment "
+                           f"kernels in the trace {count}, "
+                           f"{summary['ms_per_step']} ms/step")
+    top = sorted(summary["modules"].items(),
+                 key=lambda kv: -kv[1]["total_ms"])[:6]
+    log(f"[profile] tools.profile_step {MODEL} batch {BATCH} bf16: device "
+        f"busy {summary['ms_per_step']:.3f} ms/step over {steps} traced "
+        f"steps ({summary['activities'] / steps:.0f} device activities a "
+        f"step); op classes ms/step: " + ", ".join(
+            f"{k} {v / steps:.3f}" for k, v in summary["ops"].items())
+        + f" | {card}")
+    log("[profile] top kernels ms/step: " + "; ".join(
+        f"{n[:48]} {m['total_ms'] / steps:.3f} (x{m['count'] // steps})"
+        for n, m in top) + f"; decode_augment {count} in the trace, "
+        f"{launches} launches; phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def tools_phase(card: str) -> int:
+    """The [tools] phase: ``tools.model_info`` over all 25 models on the
+    card (parameters, bytes, FLOPs by FlopCounterMode, the Pi budget),
+    then ``tools.bench_zoo`` over two models. Checks 25 reports with
+    finite positive FLOPs and the flagship's parameter count, and one
+    decode+augment launch per bench step. Returns the launches."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.tools import bench_zoo, model_info
+
+    t0 = time.perf_counter()
+    rows = run_tool(model_info, ["--device", "cuda"], "[tools]",
+                    keep=lambda line: False)
+    flagship = next(r for r in rows if r["model"] == MODEL)
+    if len(rows) != 25 or flagship["params"] != 1_191_433 \
+            or not flagship["fits_pi_budget"] or not all(
+                np.isfinite(r["forward_flops_per_clip"])
+                and r["forward_flops_per_clip"] > 0 for r in rows):
+        raise RuntimeError(f"[tools] model_info: {rows}")
+    log(f"[tools] model_info over {len(rows)} models on the card in "
+        f"{time.perf_counter() - t0:.1f} s (MFLOP/clip by "
+        f"FlopCounterMode: products and convolutions): " + ", ".join(
+            f"{r['model']} {r['params']:,} params "
+            f"{r['forward_flops_per_clip'] / 1e6:.1f}"
+            + ("" if r["fits_pi_budget"] else " (over the Pi budget)")
+            for r in rows))
+    t0 = time.perf_counter()
+    K.LAUNCHES = 0
+    zoo = run_tool(bench_zoo, ["--models", *TOOLS_ZOO_MODELS,
+                               *TOOLS_ZOO_ARGS], "[tools]",
+                   keep=lambda line: False)
+    launches = K.LAUNCHES
+    per_model = int(TOOLS_ZOO_ARGS[1]) + int(TOOLS_ZOO_ARGS[3])
+    if [r["model"] for r in zoo] != TOOLS_ZOO_MODELS \
+            or launches != per_model * len(zoo) \
+            or not all(r["clips_per_sec"] > 0 for r in zoo):
+        raise RuntimeError(f"[tools] bench_zoo: {zoo}, {launches} launches")
+    log(f"[tools] bench_zoo ({TOOLS_ZOO_ARGS[1]} steps after "
+        f"{TOOLS_ZOO_ARGS[3]}, CUDA events): " + "; ".join(
+            f"{r['model']} {r['ms_per_step']} ms/step "
+            f"{r['clips_per_sec']:.1f} clips/s" for r in zoo)
+        + f"; decode_augment launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
     return launches
 
 
@@ -2656,9 +3175,18 @@ def main() -> int:
         root = Path(td) / "audio"
         launches_by_path["fit"] = fit_phase(device, card, root)
         launches_by_path["train"] = train_phase(device, card, root)
+        dp_train = dp_train_phase(card, root)
+        launches_by_path["dp_train"] = dp_train["decode_augment"]
     launches_by_path["infer"] = infer_phase(device, card)
-    launches_by_path["stream"] = stream_phase(card)
+    launches_by_path["stream"], one_rank = stream_phase(card)
+    launches_by_path["stream_dp"] = stream_ranks_run(card, one_rank)
+    launches_by_path["profile"] = profile_phase(card)
+    launches_by_path["tools"] = tools_phase(card)
     launches_by_path["bench"] = bench_phase(card)
+    dp_kernel["launches_by_path"] = {
+        "dp": dp_kernel["launches"],
+        "dp_train": dp_train["decode_augment_sharded"]}
+    dp_kernel["launches"] += dp_train["decode_augment_sharded"]
 
     print(json.dumps({"kernels": [{
         "name": "decode_augment",

@@ -124,9 +124,10 @@ def traced_train_device_time(trainer, state, steps: int = 20,
 
 def traced_device_time(fn: Callable[[], Any],
                        device: torch.device) -> Dict[str, Any]:
-    """Run ``fn`` once under ``torch.profiler`` and take the union of the
-    intervals in which a kernel, copy or memset ran on the card: the time
-    the device was busy, host gaps excluded.
+    """Run ``fn`` once under ``utils/profiling.py::trace_context`` and
+    read the trace back with ``summarize_trace``: the union of the
+    intervals in which a kernel, copy or memset ran on the card, the
+    time the device was busy, host gaps excluded.
 
     Returns ``device_busy_ms``, ``wall_ms`` (the host clock from the
     start of ``fn`` to the device's last activity, waited for),
@@ -135,33 +136,30 @@ def traced_device_time(fn: Callable[[], Any],
     names by total device ms). Raises if the trace holds no device
     time.
     """
+    import tempfile
+
+    from speech_recognition_tpu_torch.utils.profiling import (
+        summarize_trace, trace_context,
+    )
+
     torch.cuda.synchronize(device)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == cuda and not e.is_user_annotation)
-    if not spans:
+    with tempfile.TemporaryDirectory(prefix="srt_torch_trace_") as td:
+        with trace_context(td):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+        summary = summarize_trace(td)
+    if not summary["activities"]:
         raise RuntimeError("the profiler recorded no device activity")
-    busy_us, end, by_name = 0.0, float("-inf"), {}
-    for start, stop, name in spans:
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(summary["modules"].items(),
+                 key=lambda kv: -kv[1]["total_ms"])[:10]
     return {
-        "device_busy_ms": busy_us / 1e3,
+        "device_busy_ms": summary["device_busy_ms"],
         "wall_ms": 1e3 * wall,
-        "kernels": len(spans),
-        "memcpy_htod_ms": sum(us for n, us in by_name.items()
-                              if "HtoD" in n) / 1e3,
-        "top": {n[:60]: us / 1e3 for n, us in top},
+        "kernels": summary["activities"],
+        "memcpy_htod_ms": summary["memcpy_htod_ms"],
+        "top": {n[:60]: m["total_ms"] for n, m in top},
     }
 
 

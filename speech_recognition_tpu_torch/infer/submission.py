@@ -13,6 +13,8 @@ Parity with make_submission.py:34-213 and the team's ensemble formats:
 worker thread decodes one to two batches ahead into pinned host buffers,
 each batch goes to the device as int16 by a non-blocking copy, and the
 probabilities come back by non-blocking copies, at most 8 batches behind.
+With a Predictor over W ranks each rank decodes and predicts only its
+B/W rows of each batch, and every rank gets all the probabilities.
 """
 
 from __future__ import annotations
@@ -79,6 +81,10 @@ def predict_directory(predictor, test_dir: str, batch_size: int = 384,
 
     Returns (basenames, probs [N, C] numpy). The tail batch is padded with
     zero rows to a full batch, one shape for every call, and trimmed.
+    Over a Predictor's W ranks (``batch_size`` a multiple of W, so the
+    padded batch is too) each rank reads only its rows ``[r B/W, (r + 1)
+    B/W)`` of every batch, zero rows where the files run out; the
+    probabilities come back whole on every rank.
     ``timings``, if given, receives host seconds: ``decode_s`` (the
     worker's decoding), ``decode_wait_s`` (the caller waiting for the
     worker), ``h2d_s`` (issuing the copies to the device), ``predict_s``
@@ -92,8 +98,9 @@ def predict_directory(predictor, test_dir: str, batch_size: int = 384,
         lists.append([os.path.join(tta_dir, os.path.basename(f))
                       for f in fns])
     starts = list(range(0, len(fns), batch_size))
-    slots = [Slot(len(lists), batch_size, desired_samples, predictor.device)
-             for _ in range(DECODE_AHEAD + 1)]
+    mine = predictor.mesh.rows(batch_size)
+    slots = [Slot(len(lists), mine.stop - mine.start, desired_samples,
+                  predictor.device) for _ in range(DECODE_AHEAD + 1)]
     clock = dict.fromkeys(("decode_s", "decode_wait_s", "h2d_s",
                            "predict_s", "readback_wait_s"), 0.0)
 
@@ -101,8 +108,8 @@ def predict_directory(predictor, test_dir: str, batch_size: int = 384,
         t0 = time.perf_counter()
         slot = slots[i % len(slots)]
         start = starts[i]
-        slot.fill([paths[start:start + batch_size] for paths in lists],
-                  desired_samples)
+        slot.fill([paths[start + mine.start:start + mine.stop]
+                   for paths in lists], desired_samples)
         clock["decode_s"] += time.perf_counter() - t0
         return slot, batch_size - len(fns[start:start + batch_size])
 

@@ -12,6 +12,11 @@ The variants are folded into the batch, so the model runs once on
 [num_variants * B, ...] rather than once per variant. TTA transforms
 apply to the waveform and features are recomputed per variant, for every
 representation, as in the JAX package.
+
+Over a ``mesh`` of W ranks (the JAX Predictor's mesh, one process per
+rank here) each rank predicts its own B/W rows of every batch, variants
+folded, and the probabilities of all B rows are gathered in rank order
+on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from speech_recognition_tpu_torch.config import ModelSettings
 from speech_recognition_tpu_torch.data.wav import INT16_DECODE_SCALE
 from speech_recognition_tpu_torch.device import require_cuda
 from speech_recognition_tpu_torch.ops.frontend import Frontend
+from speech_recognition_tpu_torch.parallel.collectives import all_gather_rows
+from speech_recognition_tpu_torch.parallel.mesh import Mesh
 
 Waveforms = Union[torch.Tensor, np.ndarray]
 
@@ -68,13 +75,20 @@ class Predictor:
     at 'highest': the JAX Predictor's f32 variables. Waveforms
     come as float [B, T] in [-1, 1] or as packed int16 PCM, which is
     decoded on the device (x / 32768), so the host ships half the bytes.
+
+    ``mesh``: a ``Mesh`` of W ranks (one process each, the model's
+    weights the same on every rank): ``predict`` then takes this rank's
+    rows of a batch and returns the probabilities of the whole batch, the
+    ranks' rows gathered in rank order (``all_gather_rows``, exact).
     """
 
     def __init__(self, model: nn.Module, settings: ModelSettings,
                  representation: str, tta: TTAConfig = TTAConfig(),
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 mesh: Optional[Mesh] = None):
         self.device = require_cuda() if device is None else torch.device(
             device)
+        self.mesh = mesh or Mesh(device=self.device)
         self.model = model.to(self.device).eval()
         self.settings = settings
         self.representation = representation
@@ -113,13 +127,15 @@ class Predictor:
     def predict(self, wav: Waveforms,
                 slow_wav: Optional[Waveforms] = None) -> torch.Tensor:
         """Averaged class probabilities [B, num_classes] on the device;
-        ``slow_wav`` (the 0.9x clips) is used only with speed TTA on."""
+        ``slow_wav`` (the 0.9x clips) is used only with speed TTA on.
+        Over W ranks ``wav`` (and ``slow_wav``) are this rank's B/W rows
+        and the result is all B rows' probabilities."""
         wav = self._decode(wav)
         if not self.tta.use_tta:
-            return self._apply(wav)
+            return all_gather_rows(self._apply(wav), self.mesh)
         if slow_wav is not None:
             slow_wav = self._decode(slow_wav)
-        return self._probs_tta(wav, slow_wav)
+        return all_gather_rows(self._probs_tta(wav, slow_wav), self.mesh)
 
 
 def model_from_state(state) -> nn.Module:

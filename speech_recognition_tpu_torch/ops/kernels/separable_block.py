@@ -115,24 +115,53 @@ def separable_block_plain(x: torch.Tensor, w_dw: torch.Tensor,
     """Plain PyTorch version of the kernel, in its order of operations and
     with its rounding points (see ``csrc/separable_block.cu``)."""
     cdt, acc = x.dtype, _acc(x.dtype)
+    y = _pointwise_sum(x, w_dw, w_pw, a, b, stride, padding,
+                       fold_weights).to(cdt)
+    if not emit_stats:
+        return y
+    return y, y.to(acc).sum((0, 1)), (y * y).to(acc).sum((0, 1))
+
+
+def _pointwise_sum(x, w_dw, w_pw, a, b, stride, padding, fold_weights,
+                   absolute: bool = False,
+                   acc: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The plain version's y before its last rounding: the sum over
+    (tap, Cin) of the folded products (``fold``) or over Cin of dw x w_pw
+    (``fuse``), in the accumulation type (or ``acc``). ``absolute`` sums
+    the same terms' absolute values instead."""
+    cdt, acc = x.dtype, acc or _acc(x.dtype)
     _, t, cin = x.shape
     k = w_dw.shape[0]
     t_out, pad_lo = out_len(t, k, stride, padding)
+    mag = torch.abs if absolute else (lambda v: v)
     if a is not None:
         x = torch.clamp(x * _in_compute(a, cdt) + _in_compute(b, cdt), 0, 6)
     if fold_weights:
         taps = _taps(x, k, stride, pad_lo, t_out)            # [B, To, Cin]
-        w = fold_weights_of(w_dw, w_pw, cdt).to(acc)
-        y = taps[0].to(acc) @ w[0]
+        w = mag(fold_weights_of(w_dw, w_pw, cdt).to(acc))
+        y = mag(taps[0].to(acc)) @ w[0]
         for i in range(1, k):
-            y = y + taps[i].to(acc) @ w[i]
-    else:
-        dw = _depthwise_fuse(x, w_dw, stride, pad_lo, t_out)
-        y = dw.to(acc) @ w_pw.reshape(cin, -1).to(cdt).to(acc)
-    y = y.to(cdt)
-    if not emit_stats:
+            y = y + mag(taps[i].to(acc)) @ w[i]
         return y
-    return y, y.to(acc).sum((0, 1)), (y * y).to(acc).sum((0, 1))
+    dw = _depthwise_fuse(x, w_dw, stride, pad_lo, t_out)
+    return mag(dw.to(acc)) @ mag(w_pw.reshape(cin, -1).to(cdt).to(acc))
+
+
+def sum_terms(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
+              a: Optional[torch.Tensor] = None,
+              b: Optional[torch.Tensor] = None, *, stride: int = 1,
+              padding: str = "VALID", fold_weights: bool = True):
+    """The plain version's last sum, for the report of an element where
+    the kernel's y disagrees: ``(y before its rounding, the sum of its
+    terms' absolute values, the sum in float64, the number of terms n)``,
+    each [B, To, Cout], the first two in the accumulation type. The terms
+    are products of two values of x's dtype, exact in f32 for bf16
+    inputs, so the float64 sum stands for the exact one."""
+    k, _, cin = w_dw.shape
+    args = (x, w_dw, w_pw, a, b, stride, padding, fold_weights)
+    return (_pointwise_sum(*args), _pointwise_sum(*args, absolute=True),
+            _pointwise_sum(*args, acc=torch.float64),
+            k * cin if fold_weights else cin)
 
 
 def _taps(xin: torch.Tensor, k: int, stride: int, pad_lo: int,

@@ -9,7 +9,10 @@ explicit calls on the mesh's process group:
   BatchNorm statistics;
 - ``average_gradients``: the gradients averaged over ranks in one
   flattened bucket, after the backward pass;
-- ``all_reduce_``: an in-place sum of a metric.
+- ``all_reduce_``: an in-place sum of a metric;
+- ``all_gather_rows``: the ranks' rows of a batch, concatenated in rank
+  order (a streamed batch's silence flags, the Predictor's
+  probabilities).
 """
 
 from __future__ import annotations
@@ -67,3 +70,25 @@ def average_gradients(parameters: Iterable[torch.nn.Parameter],
     all_reduce_(flat, mesh).div_(mesh.size)
     for g, new in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(new.view_as(g))
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' ``x`` [n, ...] concatenated in rank order, [W n, ...],
+    on every rank (the global batch that ``jax.
+    make_array_from_process_local_data`` assembles). Every rank passes
+    the same shape.
+
+    Each rank writes its rows into zeros and one all-reduce sums them:
+    every element is one rank's value plus zeros, so the result is exact
+    (booleans go as int32). It is an all-reduce rather than an
+    ``all_gather`` because gloo gathers no CUDA tensors, and ranks that
+    share a card run on gloo. A one-rank mesh returns ``x``.
+    """
+    if mesh.size == 1:
+        return x
+    dtype = torch.int32 if x.dtype == torch.bool else x.dtype
+    out = x.new_zeros((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=dtype)
+    out[mesh.rows(out.shape[0])] = x.to(dtype)
+    all_reduce_(out, mesh)
+    return out.bool() if x.dtype == torch.bool else out

@@ -31,6 +31,15 @@ seed 0. The test tree is written under the temporary directory
 (``$TMPDIR``) and removed afterwards, unless ``--keep_dir`` names one to
 keep and reuse. ``--device cpu`` runs the end-to-end leg alone, on the
 CPU, and reports no device figures.
+
+Over W ranks (``torchrun --nproc_per_node W -m
+speech_recognition_tpu_torch.tools.bench_infer``) the sweep is sharded
+as ``tools.make_submission --data_parallel auto`` shards it: each rank
+decodes and predicts its B/W rows of every batch and the probabilities
+are gathered (``predict_directory`` over the Predictor's mesh). Rank 0
+writes the tree while the others wait, and alone prints; the record
+adds ``ranks``. The device-only legs (the synthetic batch and the
+traces) are left out over several ranks: their figures are ``null``.
 """
 
 from __future__ import annotations
@@ -92,8 +101,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the benchmark; returns the stdout record with the diagnostics
     under ``"diagnostics"``."""
     args = parse_args(argv)
+    import torch.distributed as dist
+
     from speech_recognition_tpu_torch.config import prepare_model_settings
-    from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_inference, traced_device_time, traced_inference_device_time,
     )
@@ -102,10 +112,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
     )
     from speech_recognition_tpu_torch.infer.tta import Predictor, TTAConfig
     from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        host_replicated, join_from_env,
+    )
+    from speech_recognition_tpu_torch.tools.make_submission import (
+        predictor_mesh,
+    )
 
-    device = (require_cuda() if args.device == "cuda"
-              else torch.device(args.device))
-    cuda = device.type == "cuda"
+    device, mesh = join_from_env(args.device)
+    shard, choice = predictor_mesh("auto", mesh, args.batch_size)
+    main_rank = mesh.rank == 0
+    if main_rank:
+        _log(choice)
+    cuda = device.type == "cuda" and mesh.size == 1
     settings = prepare_model_settings(
         label_count=12, window_size_ms=30.0, window_stride_ms=10.0,
         dct_coefficient_count=80, num_log_mel_features=60,
@@ -114,8 +133,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                               generator=torch.Generator().manual_seed(0))
     if spec.representation != "raw":
         raise SystemExit("bench_infer supports raw-representation models")
-    predictor = Predictor(model, settings, spec.representation,
-                          TTAConfig(use_tta=not args.no_tta), device)
+    predictor = Predictor(host_replicated(model.to(device), mesh),
+                          settings, spec.representation,
+                          TTAConfig(use_tta=not args.no_tta), device,
+                          mesh=shard)
     samples = settings.desired_samples
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -130,7 +151,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                               "srt_torch_bench_infer")
     test_dir = os.path.join(test_root, "audio")
     existing = len(glob.glob(os.path.join(test_dir, "*.wav")))
-    if existing != args.num_files:
+    if existing != args.num_files and main_rank:
         if args.keep_dir and existing:
             # a directory the caller asked to keep is never removed
             raise SystemExit(
@@ -142,6 +163,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         t0 = time.perf_counter()
         test_dir = build_test_dir(test_root, args.num_files)
         _log(f"built in {time.perf_counter() - t0:.1f} s")
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group)      # the tree is written
 
     def run(timings=None):
         return predict_directory(predictor, test_dir,
@@ -167,8 +190,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "projected_158538_clip_minutes":
             REFERENCE_TEST_CLIPS / e2e_cps / 60.0,
         "k80_no_tta_minutes": K80_NO_TTA_MINUTES,
-        "device": (torch.cuda.get_device_name(device) if cuda
-                   else str(device)),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else str(device)),
+        "ranks": mesh.size if shard is not None else 1,
     }
     diag = {"end_to_end_host_s": host,
             "end_to_end_host_share": {
@@ -188,6 +212,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "kernels_per_batch": traced["kernels_per_batch"],
             "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         })
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group)      # every rank is done reading
+    if not main_rank:
+        return dict(record, diagnostics=diag)
     print(json.dumps(record), flush=True)
     _log("diagnostics: " + json.dumps(diag))
     if not args.keep_dir:
@@ -196,4 +224,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    from speech_recognition_tpu_torch.parallel.distributed import leave
+
+    try:
+        main()
+    finally:
+        leave()

@@ -30,6 +30,14 @@ untimed-by-the-profiler step (and of the traced window); the peak
 device memory; decode+augment's launches against the steps; the final
 loss. ``--device cpu`` runs the steps on the CPU and reports no device
 figures.
+
+Over W ranks (``torchrun --nproc_per_node W -m
+speech_recognition_tpu_torch.tools.bench_streaming``), each rank writes
+the same corpus to a directory of its own, its loader holds its
+``process_shard`` of the clips and yields ``--batch_size`` / W rows, and
+the streamed steps run data-parallel (``Trainer`` over the mesh);
+``stream_train_clips_per_sec`` is the global batch's, and rank 0 alone
+prints, its own loader's and device's diagnostics with ``ranks``.
 """
 
 from __future__ import annotations
@@ -86,9 +94,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def stream_trainer(model: str, batch_size: int, device: torch.device):
-    """A flagship-recipe ``Trainer`` whose dataset holds only the
-    background bank (the JAX script's six 60 s noise clips)."""
+def stream_trainer(model: str, batch_size: int, device: torch.device,
+                   mesh=None):
+    """A flagship-recipe ``Trainer`` (over ``mesh``, if given) whose
+    dataset holds only the background bank (the JAX script's six 60 s
+    noise clips)."""
     from speech_recognition_tpu_torch.config import (
         AugmentConfig, prepare_model_settings,
     )
@@ -108,7 +118,7 @@ def stream_trainer(model: str, batch_size: int, device: torch.device):
             bg, settings.desired_samples, device),
         desired_samples=settings.desired_samples)
     return Trainer(model_name=model, settings=settings, dataset=ds,
-                   augment=AugmentConfig(), batch_size=batch_size)
+                   augment=AugmentConfig(), batch_size=batch_size, mesh=mesh)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -121,16 +131,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         HostPrefetchLoader,
     )
     from speech_recognition_tpu_torch.data.wav import decode_batch_int16
-    from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.export.benchmark import (
         traced_device_time,
     )
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
     )
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        join_from_env,
+    )
 
-    device = (require_cuda() if args.device == "cuda"
-              else torch.device(args.device))
+    device, mesh = join_from_env(args.device)
+    rows = mesh.rows(args.batch_size)
     cuda = device.type == "cuda"
     tmp = None
     t0 = time.perf_counter()
@@ -141,18 +153,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     else:
         tmp = tempfile.mkdtemp(prefix="srt_torch_stream_bench_")
         paths, labels, silence = build_disk_corpus(tmp, args.num_clips)
-    print(f"corpus: {len(paths)} clips on disk "
-          f"({time.perf_counter() - t0:.1f} s to write)", file=sys.stderr)
+    if mesh.rank == 0:
+        print(f"corpus: {len(paths)} clips on disk "
+              f"({time.perf_counter() - t0:.1f} s to write)",
+              file=sys.stderr)
     try:
-        trainer = stream_trainer(args.model, args.batch_size, device)
+        trainer = stream_trainer(args.model, args.batch_size, device, mesh)
         state = trainer.init_state()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         launches0 = K.LAUNCHES
         loader = HostPrefetchLoader(
-            paths, labels, silence, batch_size=args.batch_size,
+            paths, labels, silence, batch_size=rows.stop - rows.start,
             desired_samples=16000, prefetch=args.prefetch, seed=7,
-            device=device)
+            device=device, rank=mesh.rank, world=mesh.size)
         spd = args.steps_per_dispatch
         with loader:
             state, warm = trainer.fit_streaming(state, loader,
@@ -173,10 +187,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         train_steps = args.warmup + args.steps + (
             args.trace_steps if trace else 0)
         launches = K.LAUNCHES - launches0
-        rows = [paths[i % len(paths)] for i in range(args.batch_size)]
+        files = [paths[i % len(paths)] for i in range(args.batch_size)]
         t2 = time.perf_counter()
         for _ in range(3):
-            decode_batch_int16(rows, 16000)
+            decode_batch_int16(files, 16000)
         decode_cps = 3 * args.batch_size / (time.perf_counter() - t2)
     finally:
         if tmp is not None:
@@ -202,7 +216,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "compute_dtype": trainer.compute_dtype,
         "model": args.model,
         "device": str(device),
+        "ranks": mesh.size,
     }
+    if mesh.size > 1:
+        from speech_recognition_tpu_torch.parallel.collectives import (
+            all_reduce_,
+        )
+        diag["decode_augment_launches_all_ranks"] = int(all_reduce_(
+            torch.tensor([launches], device=device), mesh))
     if cuda:
         diag["device_name"] = torch.cuda.get_device_name(device)
         diag["peak_memory_bytes"] = int(
@@ -225,11 +246,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "unit": "clips/s",
         "vs_baseline": clips_per_sec / K80_TRAIN_CLIPS_PER_SEC,
     }
-    print(f"diagnostics: {json.dumps(diag)}", file=sys.stderr)
-    print(json.dumps(record))
+    if mesh.rank == 0:
+        print(f"diagnostics: {json.dumps(diag)}", file=sys.stderr)
+        print(json.dumps(record), flush=True)
     return {"record": record, "diagnostics": diag, "trainer": trainer,
             "batch": batch}
 
 
 if __name__ == "__main__":
-    main()
+    from speech_recognition_tpu_torch.parallel.distributed import leave
+
+    try:
+        main()
+    finally:
+        leave()

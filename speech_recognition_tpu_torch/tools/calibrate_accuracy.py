@@ -64,6 +64,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    action="store_const", const=0)
     p.add_argument("--output_representation", default="auto",
                    help="'auto' = the model's registry representation")
+    p.add_argument("--model_kwargs", default=None,
+                   help="JSON dict of extra module-constructor kwargs "
+                        "for ablations, e.g. '{\"head\": \"flatten\"}' "
+                        "on conv_2d_fast")
     p.add_argument("--learning_rate", type=float, default=None,
                    help="override the registry recipe's LR (ablations)")
     p.add_argument("--steps_per_dispatch", type=int, default=8,
@@ -157,6 +161,8 @@ def calibrate(args: argparse.Namespace,
         model_name=args.model, settings=settings, dataset=dataset,
         augment=AugmentConfig(), batch_size=args.batch_size,
         seed=args.seed, compute_dtype=args.compute_dtype,
+        model_kwargs=json.loads(args.model_kwargs) if args.model_kwargs
+        else None,
         learning_rate=args.learning_rate)
     state = trainer.init_state()
 
@@ -190,6 +196,8 @@ def calibrate(args: argparse.Namespace,
         "snr_db": [args.snr_lo, args.snr_hi],
         "pitch_span_l": args.pitch_span_l,
         "epochs": args.epochs,
+        **({"model_kwargs": json.loads(args.model_kwargs)}
+           if args.model_kwargs else {}),
         **({"learning_rate": args.learning_rate}
            if args.learning_rate else {}),
         "val_acc_final": round(accs[-1], 4),

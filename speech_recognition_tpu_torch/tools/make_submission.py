@@ -13,8 +13,22 @@ and writes the wanted-label
 CSV, the all-label CSV, the probability CSV and, for 12 classes, the
 uint8 memmap in AUDIO_NAMES order. The flags and defaults are the JAX
 script's, but for ``--device`` (default ``cuda``; the CPU only when
-asked) and ``--data_parallel``, which waits for a data-parallel
-predictor (ROADMAP A11).
+asked).
+
+Data parallelism (the JAX script's ``--data_parallel``)::
+
+    torchrun --nproc_per_node W -m \\
+        speech_recognition_tpu_torch.tools.make_submission \\
+        --checkpoint CKPT.pt [--data_parallel {auto,on,off}] ...
+
+``auto`` (the default) shards the sweep when a process group of more
+than one rank exists (torchrun's environment; gloo for ``--device
+cpu``), ``on`` raises without one, ``off`` predicts every batch whole on
+every rank. Sharded, each rank decodes and predicts its B/W rows of
+each batch and the probabilities are gathered. Where ``--batch_size``
+does not split over the ranks, every rank predicts whole batches, as
+the JAX script falls back to one device; the choice is printed. Only
+rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -44,16 +58,36 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--dct_coefficient_count", type=int, default=80)
     p.add_argument("--num_log_mel_features", type=int, default=60)
     p.add_argument("--no_tta", action="store_true")
+    p.add_argument("--data_parallel", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="shard each batch over the ranks of torchrun's "
+                        "process group (auto: when there is one)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
 
 
+def predictor_mesh(choice: str, mesh, batch_size: int):
+    """The mesh the Predictor shards over for ``--data_parallel choice``
+    (None: whole batches on this rank), and the line that says so."""
+    if choice == "on" and mesh.size == 1:
+        raise ValueError("--data_parallel on needs a process group of more "
+                         "than one rank (run under torchrun)")
+    if choice == "off" or mesh.size == 1:
+        return None, "data parallel: off"
+    if batch_size % mesh.size:
+        return None, (f"data parallel: off (batch {batch_size} does not "
+                      f"split over {mesh.size} ranks; each rank predicts "
+                      f"whole batches)")
+    return mesh, (f"data parallel: on, {mesh.size} ranks of "
+                  f"{batch_size // mesh.size} clips per batch")
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
-    """Write the submission files; returns {kind: path}."""
+    """Write the submission files; returns {kind: path} (empty on ranks
+    other than 0)."""
     args = parse_args(argv)
     from speech_recognition_tpu_torch.config import prepare_model_settings
-    from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.infer.submission import (
         predict_directory, to_audio_names_order, write_submission_csvs,
         write_uint8_memmap,
@@ -63,9 +97,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
         get_classes, get_int2label, prepare_words_list,
     )
     from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        host_replicated, join_from_env,
+    )
 
-    device = (require_cuda() if args.device == "cuda"
-              else torch.device(args.device))
+    device, mesh = join_from_env(args.device)
+    shard, choice = predictor_mesh(args.data_parallel, mesh, args.batch_size)
+    print(choice)
     words = prepare_words_list(get_classes(
         wanted_only=args.wanted_only, extend_reversed=args.extend_reversed))
     settings = prepare_model_settings(
@@ -83,10 +121,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                      weights_only=True)["model"])
     tta = TTAConfig(use_tta=not args.no_tta,
                     use_speed_tta=bool(args.tta_dir))
-    predictor = Predictor(model, settings, spec.representation, tta, device)
+    predictor = Predictor(host_replicated(model.to(device), mesh), settings,
+                          spec.representation, tta, device, mesh=shard)
     basenames, probs = predict_directory(
         predictor, args.test_dir, batch_size=args.batch_size,
-        tta_dir=args.tta_dir or None, progress=True)
+        tta_dir=args.tta_dir or None, progress=mesh.rank == 0)
+    if mesh.rank != 0:
+        return {}
     int2label = get_int2label(wanted_only=args.wanted_only,
                               extend_reversed=args.extend_reversed)
     paths = write_submission_csvs(args.out_prefix, basenames, probs,
@@ -102,4 +143,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    from speech_recognition_tpu_torch.parallel.distributed import leave
+
+    try:
+        main()
+    finally:
+        leave()

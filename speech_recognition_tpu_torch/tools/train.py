@@ -23,6 +23,21 @@ checkpoint of the port (model, optimizer, step) before training.
 ``--compute_dtype auto`` is bfloat16 on the card and float32 on the CPU.
 The flags and defaults are the JAX script's, plus ``--device`` (default
 ``cuda``; the CPU only when asked).
+
+Data parallelism, as the JAX script trains over the host's devices::
+
+    torchrun --nproc_per_node W -m speech_recognition_tpu_torch.tools.train ...
+
+joins the W ranks' process group from torchrun's environment (NCCL with
+a card per rank, gloo when ranks share a card or on the CPU with
+``--device cpu``); ``--batch_size`` is the global batch, B/W rows per
+rank. Every rank stages the same data and rank 0's copy is broadcast;
+in ``--stream`` mode each rank's loader holds its ``process_shard`` of
+the training files and yields B/W rows. ``--resume`` gives every rank
+rank 0's restored state. Only rank 0 writes the checkpoints, the
+TensorBoard events, the reports and the jsonl log; each rank prints its
+own ``[rank r/W]`` line per epoch, and the ranks meet at a barrier after
+each epoch's callbacks.
 """
 
 from __future__ import annotations
@@ -33,7 +48,6 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
-
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Training (PyTorch port)")
@@ -100,6 +114,26 @@ class _Report:
         return None
 
 
+class _RankLine:
+    """Over several ranks: each rank prints its epoch's train loss and
+    validation figures (repr, so that ranks compare bit for bit), then
+    waits for the others at a barrier, while rank 0 writes."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def on_epoch_end(self, epoch, state, logs):
+        import torch.distributed as dist
+
+        print(f"[rank {self.mesh.rank}/{self.mesh.size}] epoch {epoch}: "
+              f"step={state.step} loss={float(logs['loss'])!r} "
+              f"val_loss={float(logs['val_loss'])!r} "
+              f"val_acc={float(logs['val_categorical_accuracy'])!r}",
+              flush=True)
+        dist.barrier(group=self.mesh.group)
+        return None
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Train; returns ``{"trainer", "state", "val_loss",
     "val_categorical_accuracy"}`` of the final sweep."""
@@ -111,9 +145,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         build_device_dataset,
     )
     from speech_recognition_tpu_torch.data.index import build_dataset_index
-    from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.labels import (
         get_classes, prepare_words_list,
+    )
+    from speech_recognition_tpu_torch.parallel.distributed import (
+        host_replicated, join_from_env,
     )
     from speech_recognition_tpu_torch.train.checkpoint import (
         BestCheckpoint, PlateauCallback, restore_checkpoint,
@@ -124,8 +160,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     )
     from speech_recognition_tpu_torch.train.optim import ReduceLROnPlateau
 
-    device = (require_cuda() if args.device == "cuda"
-              else torch.device(args.device))
+    device, mesh = join_from_env(args.device)
+    rows = mesh.rows(args.batch_size)           # B % W == 0
+    main_rank = mesh.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
     classes = get_classes(wanted_only=args.wanted_only,
                           extend_reversed=args.extend_reversed)
     words = prepare_words_list(classes)
@@ -136,8 +174,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         dct_coefficient_count=args.dct_coefficient_count,
         num_log_mel_features=args.num_log_mel_features,
         output_representation=args.output_representation)
-    print(f"device: {device}")
-    print("indexing dataset...")
+    say(f"device: {device}" + (f"; {mesh.size} ranks, {rows.stop - rows.start}"
+                               f" clips each of a global batch of "
+                               f"{args.batch_size}" if mesh.size > 1 else ""))
+    say("indexing dataset...")
     index = build_dataset_index(
         data_dirs=args.data_dirs,
         silence_percentage=args.silence_percentage,
@@ -145,36 +185,45 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         wanted_words=classes,
         validation_percentage=args.validation_percentage,
         testing_percentage=args.testing_percentage)
-    print(index.summary())
-    print("staging the validation partition to device memory..."
-          if args.stream else "staging dataset to device memory...")
-    dataset = build_device_dataset(
+    say(index.summary())
+    say("staging the validation partition to device memory..."
+        if args.stream else "staging dataset to device memory...")
+    dataset = host_replicated(build_device_dataset(
         index, settings, device,
-        modes=["validation"] if args.stream else None)
+        modes=["validation"] if args.stream else None), mesh)
     trainer = Trainer(
         model_name=args.model, settings=settings, dataset=dataset,
         augment=AugmentConfig(pseudo_frequency=args.pseudo_frequency),
         batch_size=args.batch_size, seed=args.seed,
-        compute_dtype=args.compute_dtype)
+        compute_dtype=args.compute_dtype, mesh=mesh)
     state = trainer.init_state()
     if args.resume:
         state = restore_checkpoint(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step}")
+        # every rank read the file; rank 0's tensors then stand for it
+        # (the optimizer's step counts stay on the host, equal by then)
+        host_replicated((state.model, [
+            t for group in state.optimizer.state.values()
+            for t in group.values()
+            if torch.is_tensor(t) and t.device == device]), mesh)
+        say(f"resumed from {args.resume} at step {state.step}")
 
-    # class ids map 1:1 onto the words list (unknown words all share id 1)
-    report = ConfusionReport(
-        int2label=dict(enumerate(words)),
-        wanted_words=prepare_words_list(get_classes(wanted_only=True)),
-        all_words=words)
-    tensorboard = TensorBoardCallback(f"logs_{args.experiment}")
-    callbacks = [
-        _Report(report, args.experiment),
-        PlateauCallback(ReduceLROnPlateau(factor=0.5, patience=4,
-                                          min_lr=1e-5, mode="max")),
-        BestCheckpoint(f"checkpoints_{args.experiment}"),
+    callbacks: List[Any] = [PlateauCallback(ReduceLROnPlateau(
+        factor=0.5, patience=4, min_lr=1e-5, mode="max"))]
+    tensorboard = None
+    if main_rank:
+        # class ids map 1:1 onto the words list (unknown words all share
+        # id 1)
+        report = ConfusionReport(
+            int2label=dict(enumerate(words)),
+            wanted_words=prepare_words_list(get_classes(wanted_only=True)),
+            all_words=words)
         # reference parity: TensorBoard(log_dir='logs_210') (train.py:64)
-        tensorboard,
-    ]
+        tensorboard = TensorBoardCallback(f"logs_{args.experiment}")
+        callbacks = [_Report(report, args.experiment), *callbacks,
+                     BestCheckpoint(f"checkpoints_{args.experiment}"),
+                     tensorboard]
+    if mesh.size > 1:
+        callbacks.append(_RankLine(mesh))
     steps = args.steps_per_epoch or None
     try:
         if args.stream:
@@ -186,9 +235,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             loader = HostPrefetchLoader(
                 index.files("training"), index.labels_array("training"),
                 index.is_silence_array("training"),
-                batch_size=args.batch_size,
+                batch_size=rows.stop - rows.start,
                 desired_samples=settings.desired_samples, seed=args.seed,
-                device=device)
+                device=device, rank=mesh.rank, world=mesh.size)
             with loader:
                 for epoch in range(args.epochs):
                     t0 = time.perf_counter()
@@ -218,13 +267,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 state = trainer.recalibrate_batch_stats(
                     state, args.bn_recalibration_batches)
     finally:
-        tensorboard.close()
+        if tensorboard is not None:
+            tensorboard.close()
     conf, val_loss = trainer.evaluate(state)
     acc = accuracy(conf)
-    print(f"final: val_loss={val_loss:.4f} val_acc={acc:.4f}")
+    line = f"final: val_loss={val_loss:.4f} val_acc={acc:.4f}"
+    if mesh.size > 1:
+        from speech_recognition_tpu_torch.ops.kernels import (
+            decode_augment, sharded,
+        )
+        line = (f"[rank {mesh.rank}/{mesh.size}] {line} launches: "
+                f"decode_augment={decode_augment.LAUNCHES} "
+                f"decode_augment_sharded={sharded.LAUNCHES}")
+    print(line, flush=True)
     return {"trainer": trainer, "state": state, "val_loss": val_loss,
             "val_categorical_accuracy": acc}
 
 
 if __name__ == "__main__":
-    main()
+    from speech_recognition_tpu_torch.parallel.distributed import leave
+
+    try:
+        main()
+    finally:
+        leave()

@@ -22,7 +22,13 @@ generator (``draw_stream``) and applied by the decode+augment kernel
 with ``file_ids = arange(B)`` (``build_stream_batch``), then the step is
 the bank path's ``_update_step``. Its dataset need hold only the
 validation partition (and the background bank), for ``evaluate``; such a
-trainer refuses the bank path's steps. Streaming runs on one rank.
+trainer refuses the bank path's steps. Over W ranks each rank's loader
+holds its ``process_shard`` of the files and yields B/W rows; the global
+batch is the ranks' rows in rank order. ``draw_stream`` gathers the
+rows' silence flags, draws the augmentation of the global batch and
+keeps the rank's rows, so every rank's generator stays in step, as in
+the bank path; decode+augment runs once per rank on the rank's own
+rows.
 
 Data parallelism (``mesh`` of W > 1 ranks, one process each; the JAX
 trainer's multi-device mesh): every rank draws the global batch from the
@@ -66,7 +72,7 @@ from speech_recognition_tpu_torch.ops.kernels.sharded import (
     decode_augment_sharded,
 )
 from speech_recognition_tpu_torch.parallel.collectives import (
-    all_reduce_, average_gradients,
+    all_gather_rows, all_reduce_, average_gradients,
 )
 from speech_recognition_tpu_torch.parallel.mesh import (
     Mesh, replicated, shard_batch,
@@ -107,6 +113,9 @@ class Trainer:
     ``compute_dtype``: 'bfloat16' runs forward/backward under bf16
     autocast with f32 master weights and f32 BN statistics; 'float32' is
     reference-exact; 'auto' picks bfloat16 on CUDA and float32 on the CPU.
+    ``model_kwargs`` are extra module-constructor arguments (the
+    ablation hook of the JAX trainer, e.g. ``{"head": "flatten"}`` on
+    ``conv_2d_fast``); None builds the registry's model as it is.
     ``seed`` seeds the weight init and the trainer's generator, which
     draws batches, augmentation and dropout masks. ``batch_size`` is the
     global batch; with a ``mesh`` of W ranks (the dataset on this rank's
@@ -125,6 +134,7 @@ class Trainer:
     seed: int = 0
     compute_dtype: str = "auto"
     mesh: Optional[Mesh] = None
+    model_kwargs: Optional[Dict[str, Any]] = None
     learning_rate: Optional[float] = None
     frontend_precision: str = "auto"
 
@@ -160,6 +170,7 @@ class Trainer:
         model, _ = build_model(
             self.model_name, num_classes=self.settings.label_count,
             generator=torch.Generator().manual_seed(self.seed),
+            model_kwargs=self.model_kwargs,
             **settings_geometry(self.settings))
         model.to(self.device)
         if self.mesh.size > 1:
@@ -335,14 +346,21 @@ class Trainer:
                     generator: Optional[torch.Generator] = None) -> Draws:
         """The augmentation draws of a streamed batch of ``len(labels)``
         clips, from ``generator`` (default: the trainer's). The batch is
-        its own bank: ``file_ids`` is ``arange(B)``."""
+        its own bank: ``file_ids`` is ``arange(B)``.
+
+        With W ranks, ``labels`` and ``is_silence`` are this rank's rows
+        (every rank passes as many): the silence flags are gathered into
+        the global batch's (``all_gather_rows``), the augmentation of all
+        its rows is drawn, and this rank keeps its rows of it, with
+        ``file_ids`` ``arange(B/W)`` into its own rows."""
         g = self.generator if generator is None else generator
-        b = labels.shape[0]
-        shifts, fg_vol, bg_pos, bg_vol = draw_augment_params(
-            g, is_silence, self.augment, self.dataset.background, b,
-            self.settings.desired_samples)
-        return Draws(torch.arange(b, device=self.device), labels,
-                     is_silence, shifts, fg_vol, bg_pos, bg_vol)
+        rows = labels.shape[0]
+        silence = all_gather_rows(is_silence, self.mesh)
+        params = draw_augment_params(
+            g, silence, self.augment, self.dataset.background,
+            silence.shape[0], self.settings.desired_samples)
+        return Draws(torch.arange(rows, device=self.device), labels,
+                     is_silence, *shard_batch(params, self.mesh))
 
     def build_stream_batch(self, wav: torch.Tensor, d: Draws):
         """Augment + featurize a streamed batch on the device: int16
@@ -350,11 +368,8 @@ class Trainer:
         bank (one launch). A float32 batch already scaled (int16 clips
         over 32768, as the JAX step accepts) goes back to int16 first,
         exactly, since the scale is a power of two, and takes the same
-        kernel with the same draws; one off the int16 grid raises."""
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                "streaming trains on one rank; over several ranks it is "
-                "not ported yet (ROADMAP A10a)")
+        kernel with the same draws; one off the int16 grid raises. With
+        W ranks, ``wav`` and ``d`` are this rank's rows."""
         if wav.dtype != torch.int16:
             scaled = wav.float() * INT16_DECODE_SCALE
             grid = scaled.round().clamp(-32768, 32767)
@@ -370,7 +385,8 @@ class Trainer:
                           labels: torch.Tensor, is_silence: torch.Tensor,
                           ) -> Dict[str, torch.Tensor]:
         """One update from a streamed batch (loop.py:331-353); updates
-        ``state`` in place."""
+        ``state`` in place. With W ranks each passes its B/W rows, and
+        the metrics are the global batch's."""
         d = self.draw_stream(labels, is_silence)
         return self._update_step(state, self.build_stream_batch(wav, d),
                                  labels)

@@ -43,7 +43,10 @@ new = {"bench", "labels", "data.wav", "data.index", "data.hard_corpus",
        "models.keras_order", "models.keras_order_manifest",
        "export.keras_import", "export.aot", "data.prefetch",
        "utils.tb_events", "tools.import_checkpoint", "tools.freeze",
-       "tools.run_edge_inference", "tools.bench_streaming", "tools.train"}
+       "tools.run_edge_inference", "tools.bench_streaming", "tools.train",
+       "utils.profiling", "tools.profile_step", "tools.model_info",
+       "tools.bench_zoo", "data.noise", "tools.generate_noise", "compat",
+       "tools.prepare_dataset", "tools.seed_sweep", "tools.zoo_calibration"}
 assert new <= walked, new - walked
 import chip_smoke  # noqa: F401
 from speech_recognition_tpu_torch.config import prepare_model_settings

@@ -56,7 +56,6 @@ from speech_recognition_tpu_torch.models.layers import (
     BatchNorm, Dropout, collect_batch_stats,
 )
 from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
-from speech_recognition_tpu_torch.parallel.mesh import Mesh
 from speech_recognition_tpu_torch.train.loop import Draws, Trainer
 
 import torch_zoo_parity as Z
@@ -450,12 +449,3 @@ def test_recalibrate_batch_stats_stream(corpus):
     conf, val_loss = trainer.evaluate(state)
     assert np.isfinite(val_loss)
 
-
-def test_streaming_over_several_ranks_is_refused():
-    ds = synthetic_device_dataset(CPU, **DATA)
-    trainer = Trainer("simple", _mfcc_settings(), ds, batch_size=B,
-                      mesh=Mesh(rank=0, size=2, device=CPU))
-    d = trainer.draw_stream(ds.partitions["training"].labels[:B],
-                            ds.partitions["training"].is_silence[:B])
-    with pytest.raises(NotImplementedError, match="one rank"):
-        trainer.build_stream_batch(ds.wav_bank[:B], d)
