@@ -1,0 +1,9 @@
+"""Batch draw: the host's ms a step in the program's ``train.draw``
+spans (the sample ids and augmentation drawn), median over the window's
+tail of unprofiled steps."""
+
+from kws_bench.metrics._spans import phase_ms
+
+
+def read(layers):
+    return phase_ms(layers, "train.draw")

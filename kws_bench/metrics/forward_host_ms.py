@@ -1,0 +1,9 @@
+"""Model forward: the host's ms a step in the program's
+``train.forward`` spans (the model's forward under autocast), median
+over the window's tail of unprofiled steps."""
+
+from kws_bench.metrics._spans import phase_ms
+
+
+def read(layers):
+    return phase_ms(layers, "train.forward")

@@ -13,9 +13,13 @@ pseudo, six 30 s background clips), then ``--steps`` steps inside
 ``summarize_trace`` reads from the trace: the device's busy time per
 step (the union of its kernels', copies' and memsets' intervals, host
 gaps excluded), the kernels by total time, the classes of operation,
-and the largest kernels with the host operator that launched each. The
-flags are the JAX script's, plus ``--device`` (default ``cuda``; on the
-CPU the trace holds no device time and the summary is empty).
+the largest kernels with the host operator that launched each, and the
+device's busy and idle time a step under each of the step's profiler
+ranges (``train.draw`` ... ``train.optimizer``). Before them it prints
+the host's ms a step in each of the step's spans, the median over the
+warm-up steps. The flags are the JAX script's, plus ``--device``
+(default ``cuda``; on the CPU the trace holds no device time and the
+summary is empty).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.train.loop import Trainer
     from speech_recognition_tpu_torch.utils.profiling import (
-        summarize_trace, trace_context,
+        clear, spans, step_medians, summarize_trace, trace_context,
     )
 
     device = (require_cuda() if args.device == "cuda"
@@ -69,10 +73,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                       batch_size=args.batch_size,
                       compute_dtype=args.compute_dtype)
     state = trainer.init_state()
+    clear()
     for _ in range(args.warmup):
         trainer.train_step(state)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if args.warmup:
+        print(f"host ms a step by span (median over the {args.warmup} "
+              f"warm-up steps):")
+        for name, ms in step_medians(spans()).items():
+            print(f"  {name:<56s} {ms:9.3f} ms")
     with trace_context(args.trace_dir):
         for _ in range(args.steps):
             m = trainer.train_step(state)
@@ -95,6 +105,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     for d in summary["detail"][:12]:
         print(f"  {d['op'][:34]:<34s} {d['total_ms']:8.2f} ms  "
               f"{d['category'][:22]:<22s} {d['source']}")
+    print("device by profiler range (a step):")
+    n = args.steps
+    for name, r in sorted(summary["spans"].items(),
+                          key=lambda kv: -kv[1]["device_busy_ms"]):
+        print(f"  {name[:40]:<40s} busy {r['device_busy_ms'] / n:8.3f} ms"
+              f"  idle {r['idle_ms'] / n:8.3f} ms  "
+              f"{r['count'] / n:7.1f} activities")
     return summary
 
 

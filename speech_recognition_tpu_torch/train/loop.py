@@ -40,6 +40,12 @@ DDP, whose bucket hooks would interleave with BatchNorm's collectives),
 so a W-rank step is the one-device step on the same batch and every
 rank's parameters stay bit-identical. ``mesh=None`` (or a one-rank mesh)
 is the single-device trainer, with no collective.
+
+Each step records its phases as spans (``utils/profiling.py::span``):
+``train.step`` (in memory only) around ``train.draw``, ``train.build``,
+``train.forward``, ``train.loss``, ``train.backward`` and
+``train.optimizer``, which a ``torch.profiler`` capture also shows as
+ranges; ``init_state`` records ``setup.init_state``.
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from speech_recognition_tpu_torch.train import metrics as M
 from speech_recognition_tpu_torch.train.optim import (
     build_optimizer, l2_kernel_penalty, smooth_cross_entropy,
 )
+from speech_recognition_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -167,19 +174,20 @@ class Trainer:
     # -- setup ------------------------------------------------------------
 
     def init_state(self) -> TrainState:
-        model, _ = build_model(
-            self.model_name, num_classes=self.settings.label_count,
-            generator=torch.Generator().manual_seed(self.seed),
-            model_kwargs=self.model_kwargs,
-            **settings_geometry(self.settings))
-        model.to(self.device)
-        if self.mesh.size > 1:
-            use_mesh(model, self.mesh)
-            replicated(model, self.mesh)
-        optimizer = build_optimizer(
-            self.spec.optimizer, model.parameters(),
-            self.learning_rate or self.spec.learning_rate,
-            self.spec.momentum)
+        with span("setup.init_state", profiler_range=False):
+            model, _ = build_model(
+                self.model_name, num_classes=self.settings.label_count,
+                generator=torch.Generator().manual_seed(self.seed),
+                model_kwargs=self.model_kwargs,
+                **settings_geometry(self.settings))
+            model.to(self.device)
+            if self.mesh.size > 1:
+                use_mesh(model, self.mesh)
+                replicated(model, self.mesh)
+            optimizer = build_optimizer(
+                self.spec.optimizer, model.parameters(),
+                self.learning_rate or self.spec.learning_rate,
+                self.spec.momentum)
         return TrainState(model=model, optimizer=optimizer)
 
     def _autocast(self):
@@ -228,18 +236,25 @@ class Trainer:
         """Forward/backward/optimizer update on featurized inputs (this
         rank's rows, and their labels). After it, each parameter's
         ``.grad`` holds this step's gradient (of the global batch), and
-        the metrics are means over the global batch."""
+        the metrics are means over the global batch. Its phases are spans
+        (``utils/profiling.py::span``): ``train.optimizer`` twice, since
+        the gradients are cleared before the backward."""
         model = state.model
         model.train()
-        with self._autocast():
+        with span("train.forward"), self._autocast():
             logits = at_least_float32(model(x, self.generator))
-        loss = smooth_cross_entropy(logits, labels, self.spec.label_smoothing)
-        loss = loss + l2_kernel_penalty(model, self.spec.l2_reg)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh.size > 1:
-            average_gradients(model.parameters(), self.mesh)
-        state.optimizer.step()
+        with span("train.loss"):
+            loss = smooth_cross_entropy(logits, labels,
+                                        self.spec.label_smoothing)
+            loss = loss + l2_kernel_penalty(model, self.spec.l2_reg)
+        with span("train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with span("train.backward"):
+            loss.backward()
+            if self.mesh.size > 1:
+                average_gradients(model.parameters(), self.mesh)
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         acc = (logits.argmax(-1) == labels).float().mean()
         if self.mesh.size > 1:
@@ -252,10 +267,18 @@ class Trainer:
                    pseudo_frequency: Optional[float] = None,
                    ) -> Dict[str, torch.Tensor]:
         """One training step; updates ``state`` in place.
-        ``pseudo_frequency`` defaults to the augment config's."""
-        d = self.draw_batch(pseudo_frequency)
-        return self._update_step(state, self.build_batch(d),
-                                 shard_batch(d.labels, self.mesh))
+        ``pseudo_frequency`` defaults to the augment config's. Recorded
+        as a ``train.step`` span around the phases' spans, ``train.draw``
+        and ``train.build`` here and ``_update_step``'s; in memory only,
+        since as a profiler range it would be the outermost host range
+        at every idle gap of a capture, and hide the phases."""
+        with span("train.step", state.step, profiler_range=False):
+            with span("train.draw"):
+                d = self.draw_batch(pseudo_frequency)
+            with span("train.build"):
+                x = self.build_batch(d)
+            return self._update_step(state, x,
+                                     shard_batch(d.labels, self.mesh))
 
     def train_many(self, state: TrainState, steps: int,
                    pseudo_frequency: Optional[float] = None,
@@ -386,10 +409,14 @@ class Trainer:
                           ) -> Dict[str, torch.Tensor]:
         """One update from a streamed batch (loop.py:331-353); updates
         ``state`` in place. With W ranks each passes its B/W rows, and
-        the metrics are the global batch's."""
-        d = self.draw_stream(labels, is_silence)
-        return self._update_step(state, self.build_stream_batch(wav, d),
-                                 labels)
+        the metrics are the global batch's. Its spans are
+        ``train_step``'s."""
+        with span("train.step", state.step, profiler_range=False):
+            with span("train.draw"):
+                d = self.draw_stream(labels, is_silence)
+            with span("train.build"):
+                x = self.build_stream_batch(wav, d)
+            return self._update_step(state, x, labels)
 
     def train_many_stream(self, state: TrainState, wavs, labels,
                           is_silence) -> Dict[str, torch.Tensor]:

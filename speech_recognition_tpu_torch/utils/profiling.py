@@ -1,19 +1,28 @@
 """Tracing and profiling (port of speech_recognition_tpu/utils/profiling.py).
 
+``span`` records a named interval of the host's clock into a bounded
+in-memory ring (``spans``, ``clear``; the first record of each name also
+stays for the life of the process, ``first``). The train step opens one
+at each of its phases (``train/loop.py``). While a ``torch.profiler``
+capture records, a span that is a profiler range also enters
+``torch.profiler.record_function``, which puts it on the capture's
+timeline beside the card's kernels; outside a capture it never does.
+
 ``trace_context`` captures a ``torch.profiler`` trace of the enclosed
 block (the card's kernels, copies and memsets by CUPTI, and the host's
 operators) into a Chrome trace, ``<log_dir>/<host>.<pid>.<ns>.pt.trace.
 json.gz``, which Perfetto or ``chrome://tracing`` open. ``summarize_trace``
 reads the newest such file back into device time: the union of the
 device's busy intervals, the time per kernel and per class of operation,
-and the largest kernels with the operator that launched each, under the
-JAX summary's keys. It is the port's one parser of device time: the
-traced timings of ``export/benchmark.py`` use it too. ``StepTimer`` is a
-host clock of steps.
+the largest kernels with the operator that launched each, under the JAX
+summary's keys, and the device's busy and idle time under each profiler
+range. It is the port's one parser of device time: the traced timings of
+``export/benchmark.py`` use it too.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import glob
@@ -22,11 +31,11 @@ import json
 import os
 import re
 import socket
+import statistics
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 # Chrome-trace categories of work on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -40,6 +49,103 @@ OP_CLASSES = (
     ("reduction", re.compile(r"reduce", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
 )
+
+
+# records the span ring holds: a 10 s window of the flagship's steps, at
+# 8 records a step, passes about 6,000 through it
+RING_SPANS = 4096
+
+_ring: "collections.deque[span]" = collections.deque(maxlen=RING_SPANS)
+_first: Dict[str, "span"] = {}
+_open: Optional["span"] = None     # the innermost open span
+_profiling = torch.autograd._profiler_enabled
+_clock = time.perf_counter_ns
+
+
+class span:
+    """A named interval of the host's clock, recorded when it closes::
+
+        with span("train.step", state.step, profiler_range=False):
+            with span("train.forward"):
+                ...
+
+    The closed span is its own record: ``name``; ``step``, the step id
+    given, else its parent's; ``parent``, the span open around it (None
+    at the top); ``start_ns`` and ``end_ns`` from
+    ``time.perf_counter_ns``; ``profiled``, whether a ``torch.profiler``
+    capture was recording when it opened. With ``profiler_range`` (the
+    default) it also enters ``torch.profiler.record_function(name)``,
+    but only while a capture records: outside one, a range costs several
+    microseconds, and the check a fraction of one. Spans nest by the order they open in,
+    so they are opened by one thread, the one that steps the trainer.
+    """
+
+    __slots__ = ("name", "step", "parent", "start_ns", "end_ns",
+                 "profiled", "_range")
+
+    def __init__(self, name: str, step: Optional[int] = None,
+                 profiler_range: bool = True):
+        self.name = name
+        self.step = step
+        self._range = profiler_range
+
+    def __enter__(self) -> "span":
+        global _open
+        parent = self.parent = _open
+        if self.step is None and parent is not None:
+            self.step = parent.step
+        _open = self
+        if _profiling():
+            self.profiled = True
+            if self._range:
+                self._range = torch.profiler.record_function(self.name)
+                self._range.__enter__()
+        else:
+            self.profiled = False
+        self.start_ns = _clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _open
+        self.end_ns = _clock()
+        if self.profiled and self._range:
+            self._range.__exit__(*exc)
+        _open = self.parent
+        _ring.append(self)
+        if self.name not in _first:
+            _first[self.name] = self
+
+
+def spans() -> List[span]:
+    """The ring's records, oldest first (a span after the spans it
+    holds: records are kept as they close)."""
+    return list(_ring)
+
+
+def clear() -> None:
+    """Empty the ring (``first``'s records stay)."""
+    _ring.clear()
+
+
+def first(name: str) -> Optional[span]:
+    """The process's first closed span named ``name``, or None."""
+    return _first.get(name)
+
+
+def step_medians(records: List[span]) -> Dict[str, float]:
+    """Each name's host ms a step, the median over the steps of the
+    unprofiled ``train.step`` records among ``records``: ``train.step``'s
+    own duration, and each other name's summed over its records of the
+    step."""
+    steps = {r.step for r in records
+             if r.name == "train.step" and not r.profiled}
+    per: Dict[str, Dict[int, int]] = collections.defaultdict(
+        lambda: dict.fromkeys(steps, 0))
+    for r in records:
+        if r.step in steps and not r.profiled:
+            per[r.name][r.step] += r.end_ns - r.start_ns
+    return {name: statistics.median(v.values()) / 1e6
+            for name, v in per.items()}
 
 
 @contextlib.contextmanager
@@ -120,8 +226,18 @@ def summarize_trace(log_dir: str, num_steps: Optional[int] = None) -> Dict:
     the device runs); ``source`` is the host operator that launched it
     (matched by the trace's ``External id``), ``category`` its op class
     (``op_class``), ``flops`` empty (the trace counts none). Besides:
-    ``activities`` (their number) and ``memcpy_htod_ms`` (host-to-device
-    copies).
+    ``activities`` (their number), ``memcpy_htod_ms`` (host-to-device
+    copies) and ``spans``, the device's time under each profiler range
+    (``span``'s, and any other ``record_function``): {outermost range:
+    {"device_busy_ms", "idle_ms", "count"}}. An activity is put down to
+    the outermost range running on the host when the operator that
+    launched it began, matched by ``External id``, whatever the thread,
+    else (a kernel launched outside PyTorch's operators, as
+    decode+augment's through ``ctypes``) when its launch call ran,
+    matched by ``correlation``; ``count`` is the number of such activities,
+    ``device_busy_ms`` the union of their intervals. An idle gap between
+    activities is put down to the outermost range running at its
+    middle. What falls under no range is put down to ``NO_RANGE``.
     """
     if os.path.isfile(log_dir):
         path = log_dir
@@ -138,7 +254,7 @@ def summarize_trace(log_dir: str, num_steps: Optional[int] = None) -> Dict:
             ext = e.get("args", {}).get("External id")
             if ext is not None:
                 launched_by.setdefault(ext, e["name"])
-    spans = sorted(
+    acts = sorted(
         (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e)
         for e in events
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
@@ -148,7 +264,10 @@ def summarize_trace(log_dir: str, num_steps: Optional[int] = None) -> Dict:
     ops = collections.Counter()
     meta: Dict[str, Dict[str, str]] = {}
     htod_us = 0.0
-    for start, stop, e in spans:
+    gaps: List[Tuple[float, float]] = []
+    for start, stop, e in acts:
+        if end > float("-inf") and start > end:
+            gaps.append((end, start))
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
         name, dur = e["name"], stop - start
@@ -170,40 +289,61 @@ def summarize_trace(log_dir: str, num_steps: Optional[int] = None) -> Dict:
         "detail": [dict(op=n, total_ms=us / 1e3, **meta[n])
                    for n, us in total.most_common(15)],
         "device_busy_ms": busy_us / 1e3,
-        "activities": len(spans),
+        "activities": len(acts),
         "memcpy_htod_ms": htod_us / 1e3,
+        "spans": _by_range(events, acts, gaps),
     }
     if num_steps:
         out["ms_per_step"] = out["device_busy_ms"] / num_steps
     return out
 
 
-class StepTimer:
-    """Rolling step timing on the host clock -> clips/s, and clips/s per
-    card (the global batch over the ranks of the process group, one card
-    each)."""
+# where summarize_trace puts what falls under no profiler range
+NO_RANGE = "no range"
 
-    def __init__(self, batch_size: int, window: int = 50):
-        self.batch_size = batch_size
-        self.window = window
-        self._times: List[float] = []
-        self._last: Optional[float] = None
 
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
+def _by_range(events, acts, gaps) -> Dict[str, Dict[str, float]]:
+    """``summarize_trace``'s ``spans``: the device's activities ``acts``
+    (sorted (start, stop, event)) and idle ``gaps`` by outermost profiler
+    range."""
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                     e["name"]) for e in events
+                    if e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation")
+    outer: List[Tuple[float, float, str]] = []
+    for r in ranges:
+        if not outer or r[0] >= outer[-1][1]:
+            outer.append(r)
+    starts = [r[0] for r in outer]
 
-    def stats(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        mean = sum(self._times) / len(self._times)
-        ranks = dist.get_world_size() if dist.is_initialized() else 1
-        return {
-            "ms_per_step": 1000.0 * mean,
-            "clips_per_sec": self.batch_size / mean,
-            "clips_per_sec_per_chip": self.batch_size / mean / ranks,
-        }
+    def range_at(t: Optional[float]) -> str:
+        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+        return outer[i][2] if i >= 0 and t <= outer[i][1] else NO_RANGE
+
+    began: Dict[Any, float] = {}       # External id -> operator's start
+    launched: Dict[Any, float] = {}    # correlation -> launch call's start
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        args = e.get("args", {})
+        if e.get("cat") == "cpu_op" and "External id" in args:
+            began.setdefault(args["External id"], float(e["ts"]))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in args:
+            launched[args["correlation"]] = float(e["ts"])
+    out: Dict[str, Dict[str, float]] = collections.defaultdict(
+        lambda: {"device_busy_ms": 0.0, "idle_ms": 0.0, "count": 0})
+    ends: Dict[str, float] = {}
+    for start, stop, e in acts:
+        args = e.get("args", {})
+        t = began.get(args.get("External id"))
+        name = range_at(launched.get(args.get("correlation"))
+                        if t is None else t)
+        s = out[name]
+        end = ends.get(name, float("-inf"))
+        s["device_busy_ms"] += max(0.0, stop - max(start, end)) / 1e3
+        ends[name] = max(end, stop)
+        s["count"] += 1
+    for a, b in gaps:
+        out[range_at((a + b) / 2)]["idle_ms"] += (b - a) / 1e3
+    return dict(out)

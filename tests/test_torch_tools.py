@@ -206,19 +206,6 @@ def test_trace_context_on_the_cpu(tmp_path):
     assert s["activities"] == 0 and s["device_busy_ms"] == 0.0
 
 
-def test_step_timer():
-    t = P.StepTimer(batch_size=10, window=2)
-    assert t.stats() == {}
-    with mock.patch.object(P.time, "perf_counter",
-                           side_effect=[0.0, 0.5, 1.5, 3.5]):
-        for _ in range(4):
-            t.tick()
-    s = t.stats()          # the last two intervals: 1 s and 2 s
-    assert s["ms_per_step"] == pytest.approx(1500.0)
-    assert s["clips_per_sec"] == pytest.approx(10 / 1.5)
-    assert s["clips_per_sec_per_chip"] == s["clips_per_sec"]
-
-
 def _small_dataset(device, **kw):
     return synthetic_device_dataset(device, num_train=16, num_val=8,
                                     num_pseudo=4)
