@@ -25,11 +25,12 @@ with the host compiler at its first use) and drives these paths:
   models, the Inceptions, the residual family, the MFCC MLPs and 2-D
   convs, and the BiGRU models), at its golden's feature geometry,
   against its parameter-count golden, its f32 logits on the card against
-  the CPU on the same ``Frontend`` features, then 5 bf16 train steps
+  the CPU on the same ``Frontend`` features, then 6 bf16 train steps
   through ``Trainer`` at batch 384 (ms/step and clips/s by CUDA events,
-  peak memory), checking finite losses, one decode+augment launch per
-  step and the kernel against its plain version on one of the model's
-  draws;
+  peak memory), checking finite losses, one decode+augment run per
+  step (a launch, or a replay of the step's CUDA graph) and the kernel
+  against its plain version on one of the model's draws, and listing
+  the models whose capture of the step failed;
 - separable block (``[separable]``): holds the fused forward kernel, in
   its ``fuse`` and ``fold`` variants, against its plain version at the
   flagship's 11 trunk shapes at batch 384 in bf16 and f32 (a y element
@@ -315,8 +316,9 @@ ZOO_PARAMS = {
     "xception_with_attention": 2_264_654,
 }
 ZOO_MEL_40 = ("simple", "snn", "conv_2d", "conv_2d_mobile", "conv_2d_fast")
-# cut from 2 + 8 steps and 3 traced for the phases over ranks
-ZOO_WARMUP, ZOO_STEPS = 1, 4
+# cut from 2 + 8 steps and 3 traced for the phases over ranks; the
+# warm-up is the eager step and the capture of the step's CUDA graph
+ZOO_WARMUP, ZOO_STEPS = 2, 4
 ZOO_TRACED = 2      # steps traced by torch.profiler after the timed ones
 # NVIDIA H100 SXM data sheet: HBM bytes/s; dense FLOP/s in f32 (CUDA
 # cores) and bf16 (tensor cores)
@@ -356,6 +358,29 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def reset_decode_augment_runs() -> None:
+    """Set decode+augment's launches and the graph replays to 0."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.train import loop
+
+    K.LAUNCHES = loop.REPLAYS = 0
+
+
+def decode_augment_runs() -> int:
+    """decode+augment's runs on the card since
+    ``reset_decode_augment_runs``: the kernel's launches that ran as they
+    were made, and the replays of the train step's CUDA graph, each of
+    which runs the launch its capture recorded (and did not count)."""
+    from speech_recognition_tpu_torch.ops.kernels import (
+        decode_augment as K,
+    )
+    from speech_recognition_tpu_torch.train import loop
+
+    return K.LAUNCHES + loop.REPLAYS
 
 
 def log(msg: str) -> None:
@@ -1722,11 +1747,12 @@ def zoo_phase(device, card: str, ds, settings) -> int:
     (TF32 off, BN statistics set to the features'; within LOGITS_ATOL,
     absolute and relative to max |logit|), ``ZOO_WARMUP + ZOO_STEPS``
     bf16 train steps through ``Trainer`` at batch 384 with finite losses
-    and one decode+augment launch each (timed by CUDA events over the
-    last ``ZOO_STEPS``), the kernel
+    and one decode+augment run each, launched or replayed with the
+    step's CUDA graph (timed by CUDA events over the last
+    ``ZOO_STEPS``), the models whose capture failed listed, the kernel
     against its plain version on one of the model's own draws, and the
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
-    against the events' step. Returns the launches of decode+augment in
+    against the events' step. Returns the runs of decode+augment in
     the trainers' timed steps (read before the comparison and the
     trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
@@ -1737,12 +1763,11 @@ def zoo_phase(device, card: str, ds, settings) -> int:
         MODEL_REGISTRY, build_model,
     )
     from speech_recognition_tpu_torch.ops.frontend import Frontend
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
+    from speech_recognition_tpu_torch.train import loop
     from speech_recognition_tpu_torch.train.loop import Trainer
 
     phase_t0 = time.perf_counter()
+    eager = []
     missing = set(ZOO_PARAMS) - set(MODEL_REGISTRY)
     if missing:
         raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
@@ -1790,14 +1815,17 @@ def zoo_phase(device, card: str, ds, settings) -> int:
             raise RuntimeError(f"[zoo] {name}: {trainer.compute_dtype}")
         state = trainer.init_state()
         torch.cuda.reset_peak_memory_stats()
-        K.LAUNCHES = 0
+        reset_decode_augment_runs()
         result = benchmark_train(trainer, state, steps=ZOO_STEPS,
                                  warmup=ZOO_WARMUP)
-        launches = K.LAUNCHES
+        launches, replays = decode_augment_runs(), loop.REPLAYS
         losses = result["losses"]
         if launches != ZOO_STEPS + ZOO_WARMUP:
-            raise RuntimeError(f"[zoo] {name}: {launches} kernel launches "
-                               f"in {ZOO_STEPS + ZOO_WARMUP} train steps")
+            raise RuntimeError(f"[zoo] {name}: {launches} decode_augment "
+                               f"runs in {ZOO_STEPS + ZOO_WARMUP} train "
+                               f"steps")
+        if trainer.graph_error is not None:
+            eager.append(name)
         if len(losses) != ZOO_STEPS + ZOO_WARMUP \
                 or not np.isfinite(losses).all():
             raise RuntimeError(f"[zoo] {name} losses: {losses}")
@@ -1811,7 +1839,9 @@ def zoo_phase(device, card: str, ds, settings) -> int:
             f"(golden); f32 logits card vs CPU max abs err {err:.3g} (tol "
             f"{LOGITS_ATOL}, and {LOGITS_ATOL} of max |logit| {top:.3g}); "
             f"losses {[round(v, 4) for v in losses]}; decode_augment "
-            f"launches {launches}, vs plain {kernel_err:.3g}")
+            f"runs {launches} ({replays} in replays of the step's CUDA "
+            f"graph; capture error: {trainer.graph_error}), vs plain "
+            f"{kernel_err:.3g}")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
             f"{result['ms_per_step']:.3f} ms/step, "
             f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
@@ -1829,7 +1859,8 @@ def zoo_phase(device, card: str, ds, settings) -> int:
         del trainer, state
         torch.cuda.empty_cache()
     log(f"[zoo] phase {time.perf_counter() - phase_t0:.1f} s, "
-        f"decode_augment launches {total}")
+        f"decode_augment runs {total}; models whose capture of the train "
+        f"step failed, their steps eager: {eager or 'none'}")
     return total
 
 
@@ -1876,9 +1907,6 @@ def fit_phase(device, card: str, root) -> int:
     )
     from speech_recognition_tpu_torch.data.wav import load_wav_file
     from speech_recognition_tpu_torch.ops.frontend import Frontend
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
     from speech_recognition_tpu_torch.tools import calibrate_accuracy as C
 
     phase_t0 = time.perf_counter()
@@ -1925,9 +1953,9 @@ def fit_phase(device, card: str, root) -> int:
         args = C.parse_args(FIT_ARGS + ["--seed", str(seed)]
                             + (["--eval_int8"] if seed == 0 else []))
         t0 = time.perf_counter()
-        K.LAUNCHES = 0
+        reset_decode_augment_runs()
         record, trainer, history = C.calibrate(args, corpus_root=root)
-        seed_launches = K.LAUNCHES
+        seed_launches = decode_augment_runs()
         seed_s = time.perf_counter() - t0
         da_err = decode_augment_on_path(
             trainer.dataset, trainer.draw_batch(), f"[fit] seed {seed}")
@@ -2102,9 +2130,6 @@ def train_phase(device, card: str, root) -> int:
         SILENCE_LABEL, get_classes,
     )
     from speech_recognition_tpu_torch.models.zoo import build_model
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
     from speech_recognition_tpu_torch.tools import (
         freeze, run_edge_inference, train,
     )
@@ -2132,10 +2157,10 @@ def train_phase(device, card: str, root) -> int:
                                                weights_only=True)["step"])
                     extra = extra + [best]
                 t0 = time.perf_counter()
-                K.LAUNCHES = 0
+                reset_decode_augment_runs()
                 out[mode] = run_tool(train, common + ["--experiment", mode]
                                      + extra, "[train]", _train_line)
-                launches[mode] = K.LAUNCHES
+                launches[mode] = decode_augment_runs()
                 log(f"[train] tools.train {mode}: {TRAIN_EPOCHS} epochs, "
                     f"step {out[mode]['state'].step}, val acc "
                     f"{out[mode]['val_categorical_accuracy']:.4f}, "
@@ -2548,9 +2573,6 @@ def serving_chain(device, td, root, card: str) -> int:
         SILENCE_LABEL, get_classes, get_int2label,
     )
     from speech_recognition_tpu_torch.models.zoo import build_model
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
     from speech_recognition_tpu_torch.tools import calibrate_accuracy as C
     from speech_recognition_tpu_torch.tools import (
         create_tta_set, make_submission, pseudo_labels,
@@ -2712,12 +2734,12 @@ def serving_chain(device, td, root, card: str) -> int:
 
     trainer.draw_batch = counting_draw
     steps = ds.set_size("training") // args.batch_size
-    K.LAUNCHES = 0
+    reset_decode_augment_runs()
     state, history = trainer.fit(
         state, epochs=RETRAIN_EPOCHS,
         bn_recalibration_batches=args.bn_recalibration_batches,
         steps_per_dispatch=8)
-    launches = K.LAUNCHES
+    launches = decode_augment_runs()
     expected = RETRAIN_EPOCHS * (steps + args.bn_recalibration_batches)
     drawn = torch.stack(drawn)
     pseudo_rows = int(drawn.sum())
@@ -2872,18 +2894,15 @@ def profile_phase(card: str) -> int:
     that the kernel launched once per step. Returns the launches."""
     import tempfile
 
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
     from speech_recognition_tpu_torch.tools import profile_step
 
     steps = int(PROFILE_ARGS[3])
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="srt_torch_profile_") as td:
-        K.LAUNCHES = 0
+        reset_decode_augment_runs()
         summary = run_tool(profile_step, PROFILE_ARGS + ["--trace_dir", td],
                            "[profile]", keep=lambda line: False)
-        launches = K.LAUNCHES
+        launches = decode_augment_runs()
     kernels = {n: m for n, m in summary["modules"].items()
                if re.search(DECODE_KERNEL, n)}
     count = sum(m["count"] for m in kernels.values())
@@ -2913,9 +2932,6 @@ def tools_phase(card: str) -> int:
     then ``tools.bench_zoo`` over two models. Checks 25 reports with
     finite positive FLOPs and the flagship's parameter count, and one
     decode+augment launch per bench step. Returns the launches."""
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
     from speech_recognition_tpu_torch.tools import bench_zoo, model_info
 
     t0 = time.perf_counter()
@@ -2935,11 +2951,11 @@ def tools_phase(card: str) -> int:
             + ("" if r["fits_pi_budget"] else " (over the Pi budget)")
             for r in rows))
     t0 = time.perf_counter()
-    K.LAUNCHES = 0
+    reset_decode_augment_runs()
     zoo = run_tool(bench_zoo, ["--models", *TOOLS_ZOO_MODELS,
                                *TOOLS_ZOO_ARGS], "[tools]",
                    keep=lambda line: False)
-    launches = K.LAUNCHES
+    launches = decode_augment_runs()
     per_model = int(TOOLS_ZOO_ARGS[1]) + int(TOOLS_ZOO_ARGS[3])
     if [r["model"] for r in zoo] != TOOLS_ZOO_MODELS \
             or launches != per_model * len(zoo) \
@@ -3126,12 +3142,12 @@ def main() -> int:
     # 6. the slice: 20 bf16 train steps, then one validation sweep
     state = trainer.init_state()
     torch.cuda.reset_peak_memory_stats()
-    K.LAUNCHES = 0
+    reset_decode_augment_runs()
     result = benchmark_train(trainer, state, steps=STEPS, warmup=WARMUP)
     t0 = time.perf_counter()
     conf, val_loss = trainer.evaluate(state, "validation")
     eval_s = time.perf_counter() - t0
-    launches = K.LAUNCHES
+    launches = decode_augment_runs()
     losses = result["losses"]
     if launches != STEPS + WARMUP:
         raise RuntimeError(f"{launches} kernel launches in "

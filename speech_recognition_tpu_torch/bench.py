@@ -30,8 +30,9 @@ Each rep is timed by CUDA events over its steps, with the host clock
 beside it; the best rep gives the metric. Then one ``torch.profiler``
 trace of as many steps (at most 200) gives the device busy time, and
 ``FlopCounterMode`` over one step the FLOPs, against the H100 SXM's 989
-TFLOP/s in bf16. Steps are eager, one dispatch each
-(``steps_per_dispatch: 1``), until the train step is a CUDA graph. The
+TFLOP/s in bf16. Each step is one call (``steps_per_dispatch: 1``):
+after the first, a replay of the train step's CUDA graph; the FLOPs'
+step runs eagerly, since ``FlopCounterMode`` sees no replay. The
 JAX bench's TPU preflight and compile cache have no counterpart: the
 preflight here is a child that asks for the card, and without one the
 bench exits non-zero before it prints a metric line.
@@ -187,6 +188,7 @@ def _measure_in_child() -> None:
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
     )
+    from speech_recognition_tpu_torch.train import loop
     from speech_recognition_tpu_torch.train.loop import Trainer
 
     device = require_cuda()
@@ -210,7 +212,7 @@ def _measure_in_child() -> None:
     spd = int(os.environ.get("BENCH_SPD", "800"))
     steps = max(100, spd)
     torch.cuda.reset_peak_memory_stats(device)
-    K.LAUNCHES = 0
+    K.LAUNCHES = loop.REPLAYS = 0
     reps, train_steps = [], 0
     for rep in range(3 if small else 6):
         warmup = 10 if rep == 0 else 5
@@ -264,7 +266,8 @@ def _measure_in_child() -> None:
         "mfu_device_busy": (flops / (trace["device_ms_per_step"] / 1e3)
                             / H100_BF16_PEAK_FLOPS),
         "train_steps": train_steps,
-        "decode_augment_launches": K.LAUNCHES,
+        # its runs: launched, or in a replay of the step's graph
+        "decode_augment_launches": K.LAUNCHES + loop.REPLAYS,
         "device": torch.cuda.get_device_name(device),
     }
     _log(f"diagnostics: {json.dumps(diag)}")

@@ -237,7 +237,8 @@ def train_step_flops(trainer, state) -> float:
     """FLOPs of one train step as ``torch.utils.flop_counter`` counts
     them: the matmuls and convolutions of the forward and the backward
     (the elementwise work, the optimizer and the data path count 0).
-    Runs one step; ``state`` is updated in place."""
+    Runs one step, eagerly: under ``FlopCounterMode`` ``train_step``
+    takes no CUDA graph. ``state`` is updated in place."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = FlopCounterMode(display=False)

@@ -24,7 +24,10 @@ import torch
 
 from speech_recognition_tpu_torch.ops.kernels import build
 
-# Kernel launches made by ``decode_augment`` in this process.
+# Kernel launches made by ``decode_augment`` in this process that run as
+# they are made: a launch recorded by a CUDA graph capture runs at each
+# replay of its graph instead (``train/loop.py::REPLAYS`` counts those
+# of the train step).
 LAUNCHES = 0
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
@@ -114,10 +117,12 @@ def decode_augment(bank: torch.Tensor, bg_flat: torch.Tensor,
                     bg_flat.shape[0], file_ids.data_ptr(), shifts.data_ptr(),
                     fg_vol.data_ptr(), bg_pos.data_ptr(), bg_vol.data_ptr(),
                     out.data_ptr(), batch, stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         msg = lib.decode_augment_error_string(err).decode()
         raise RuntimeError(f"decode_augment launch failed: {msg} ({err})")
-    LAUNCHES += 1
+    if not capturing:
+        LAUNCHES += 1
     return out
 
 

@@ -45,11 +45,18 @@ def restore_checkpoint(path: str, state: TrainState,
                        generator: Optional[torch.Generator] = None,
                        ) -> TrainState:
     """Load the file ``path`` into ``state`` (from ``Trainer.init_state``)
-    in place, and into ``generator`` if one is given; returns ``state``."""
+    in place, and into ``generator`` if one is given; returns ``state``.
+    The optimizer keeps its own ``capturable`` flags: they follow the
+    device it runs on (``build_optimizer``), not the one that saved."""
     tree = torch.load(os.path.abspath(path), map_location="cpu",
                       weights_only=True)
     state.model.load_state_dict(tree["model"])
-    state.optimizer.load_state_dict(tree["optimizer"])
+    saved = tree["optimizer"]
+    for group, live in zip(saved["param_groups"],
+                           state.optimizer.param_groups):
+        if "capturable" in live:
+            group["capturable"] = live["capturable"]
+    state.optimizer.load_state_dict(saved)
     state.step = int(tree["step"])
     if generator is not None:
         if "generator" not in tree:

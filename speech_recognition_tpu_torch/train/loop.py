@@ -46,6 +46,16 @@ Each step records its phases as spans (``utils/profiling.py::span``):
 ``train.forward``, ``train.loss``, ``train.backward`` and
 ``train.optimizer``, which a ``torch.profiler`` capture also shows as
 ranges; ``init_state`` records ``setup.init_state``.
+
+On a CUDA device with one rank, the bank path's step is one CUDA graph
+(``Trainer._graph_step``): the first step of a state runs eagerly, the
+next captures the same step body (draw, decode+augment, features,
+forward, loss, backward, optimizer) and every later one replays it, as
+long as nothing the graph bakes in changes (``Trainer.graph_key``). A
+replayed step records ``train.replay`` inside its ``train.step`` and no
+phase spans, since their Python does not run; the capture records
+``train.capture``. The CPU, W > 1 ranks and the streamed step (a new
+host batch each step) stay eager.
 """
 
 from __future__ import annotations
@@ -89,6 +99,11 @@ from speech_recognition_tpu_torch.train.optim import (
 )
 from speech_recognition_tpu_torch.utils.profiling import span
 
+# Train steps run in this process as a replay of a captured CUDA graph.
+# Each runs one decode+augment, which ``decode_augment.LAUNCHES`` does
+# not count: it counts the launches that run as they are made.
+REPLAYS = 0
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -98,6 +113,18 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """A trainer's CUDA graph of its bank step, and the key it holds
+    for. ``graph`` is None after the eager step that warms the key up;
+    ``state`` keeps alive the objects the key names by ``id``."""
+
+    key: tuple
+    state: TrainState
+    graph: Any = None
+    outputs: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclasses.dataclass
@@ -131,6 +158,9 @@ class Trainer:
     registry recipe's. ``frontend_precision`` is the ``Frontend``'s
     ('highest' or 'fastest'); 'auto' follows the compute dtype, 'fastest'
     under bfloat16 (the JAX trainer's choice, loop.py:106-112, 169-176).
+    ``graph_error`` is None, or the error that made the capture of the
+    bank step's CUDA graph fail, after which the trainer's steps stay
+    eager.
     """
 
     model_name: str
@@ -170,6 +200,8 @@ class Trainer:
         self._bg_flat = (bg.flat if bg is not None else
                          torch.zeros(t, dtype=torch.float32,
                                      device=self.device))
+        self._graph: Optional[_StepGraph] = None
+        self.graph_error: Optional[str] = None
 
     # -- setup ------------------------------------------------------------
 
@@ -266,28 +298,160 @@ class Trainer:
     def train_step(self, state: TrainState,
                    pseudo_frequency: Optional[float] = None,
                    ) -> Dict[str, torch.Tensor]:
-        """One training step; updates ``state`` in place.
-        ``pseudo_frequency`` defaults to the augment config's. Recorded
-        as a ``train.step`` span around the phases' spans, ``train.draw``
-        and ``train.build`` here and ``_update_step``'s; in memory only,
+        """One training step; updates ``state`` in place and returns its
+        metrics as tensors of their own. ``pseudo_frequency`` defaults
+        to the augment config's. Recorded as a ``train.step`` span
+        around the phases' spans (``_bank_step``'s); in memory only,
         since as a profiler range it would be the outermost host range
-        at every idle gap of a capture, and hide the phases."""
+        at every idle gap of a capture, and hide the phases.
+
+        On a CUDA device with one rank the step is its CUDA graph's
+        (``_graph_step``), except under a ``TorchDispatchMode`` such as
+        ``FlopCounterMode``, which sees only the operators that run
+        eagerly."""
         with span("train.step", state.step, profiler_range=False):
-            with span("train.draw"):
-                d = self.draw_batch(pseudo_frequency)
-            with span("train.build"):
-                x = self.build_batch(d)
-            return self._update_step(state, x,
-                                     shard_batch(d.labels, self.mesh))
+            if self._uses_graph():
+                return self._graph_step(state, pseudo_frequency)
+            return self._bank_step(state, pseudo_frequency)
+
+    def _uses_graph(self) -> bool:
+        """Whether ``train_step`` goes through the CUDA graph: on a CUDA
+        device, one rank (a step over W ranks runs collectives and stays
+        eager), no failed capture, and no ``TorchDispatchMode`` watching
+        the operators."""
+        return (self.device.type == "cuda" and self.mesh.size == 1
+                and self.graph_error is None
+                and not torch._C._len_torch_dispatch_stack())
+
+    def _bank_step(self, state: TrainState,
+                   pseudo_frequency: Optional[float],
+                   ) -> Dict[str, torch.Tensor]:
+        """The bank path's step body: what an eager step runs and what
+        a capture records."""
+        with span("train.draw"):
+            d = self.draw_batch(pseudo_frequency)
+        with span("train.build"):
+            x = self.build_batch(d)
+        return self._update_step(state, x, shard_batch(d.labels, self.mesh))
+
+    def graph_key(self, state: TrainState,
+                  pseudo_frequency: Optional[float] = None) -> tuple:
+        """What a captured bank step bakes in, as a tuple that stays
+        equal only while a replay redoes the eager step: the host values
+        (the pseudo frequency, the batch size, the augmentation, the
+        compute dtype, the partitions' and the background's sizes, and
+        each param group's hyperparameters, the learning rate among
+        them), the trainer's generator, the state, its model and its
+        optimizer by ``id``, and the address of every tensor the step
+        reads or writes: parameters, their gradients, buffers,
+        optimizer state, the bank, the background and the partitions'
+        index tensors."""
+        if pseudo_frequency is None:
+            pseudo_frequency = self.augment.pseudo_frequency
+        model, opt, ds = state.model, state.optimizer, self.dataset
+        tensors = []
+        for m in model.modules():       # one walk: a key is made each step
+            for p in m._parameters.values():
+                if p is not None:
+                    tensors += (p, p.grad)
+            tensors += m._buffers.values()
+        tensors += [*(v for s in opt.state.values() for v in s.values()
+                      if torch.is_tensor(v)),
+                    ds.wav_bank, self._bg_flat,
+                    *(t for p in ds.partitions.values()
+                      for t in (p.file_ids, p.labels, p.is_silence))]
+        bg = ds.background
+        if bg is not None:
+            tensors += [bg.starts, bg.lengths]
+        groups = tuple(
+            tuple((k, v.data_ptr() if torch.is_tensor(v) else v)
+                  for k, v in group.items() if k != "params")
+            for group in opt.param_groups)
+        sizes = (tuple((k, p.size) for k, p in ds.partitions.items()),
+                 None if bg is None else bg.num_clips)
+        return (pseudo_frequency, self.batch_size, self.augment,
+                self.compute_dtype, sizes, groups, id(self.generator),
+                id(state), id(model), id(opt),
+                tuple(None if t is None else t.data_ptr() for t in tensors))
+
+    def _graph_step(self, state: TrainState,
+                    pseudo_frequency: Optional[float],
+                    ) -> Dict[str, torch.Tensor]:
+        """The bank step through the trainer's one CUDA graph. Under a
+        key (``graph_key``) the graph does not hold, the graph is freed
+        and the step runs eagerly: the state's first step, a new
+        learning rate or pseudo frequency, a loaded optimizer state.
+        That step also makes the optimizer's state and the libraries'
+        handles, so the next call under its key captures the step body
+        and replays it; later calls replay it. A replay writes every
+        tensor the eager step writes, each parameter's ``.grad`` among
+        them, and advances the generator as the eager step does."""
+        global REPLAYS
+        key = self.graph_key(state, pseudo_frequency)
+        g = self._graph
+        if g is None or g.key != key:
+            self._graph = None
+            out = self._bank_step(state, pseudo_frequency)
+            self._graph = _StepGraph(
+                self.graph_key(state, pseudo_frequency), state)
+            return out
+        if g.graph is None and not self._capture(g, state,
+                                                 pseudo_frequency):
+            return self._bank_step(state, pseudo_frequency)
+        with span("train.replay"):
+            g.graph.replay()
+        REPLAYS += 1
+        if not state.model.training:     # as the eager step leaves it
+            state.model.train()
+        state.step += 1
+        return {k: v.clone() for k, v in g.outputs.items()}
+
+    def _capture(self, g: _StepGraph, state: TrainState,
+                 pseudo_frequency: Optional[float]) -> bool:
+        """Capture the step body into ``g``; the capture runs nothing
+        and leaves ``state.step`` as it was. On a failure (a host sync
+        in a model's forward, say) print the error, keep it in
+        ``graph_error`` and return False: the trainer stays eager."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        index = (self.device.index if self.device.index is not None
+                 else torch.cuda.current_device())
+        generators = (self.generator, torch.cuda.default_generators[index])
+        before = [gen.get_state() for gen in generators]
+        stream, step = torch.cuda.current_stream(self.device), state.step
+        try:
+            with span("train.capture"), torch.cuda.graph(graph):
+                outputs = self._bank_step(state, pseudo_frequency)
+        except RuntimeError as e:
+            # torch leaves the stream and the capture's generators (the
+            # trainer's and the device's default) in capture mode: each
+            # generator takes a new state object at its state before
+            torch.cuda.set_stream(stream)
+            for gen, saved in zip(generators, before):
+                fresh = torch.Generator(device=self.device)
+                fresh.set_state(saved)
+                gen.graphsafe_set_state(fresh.graphsafe_get_state())
+            self._graph, self.graph_error = None, repr(e)
+            print(f"train step: the CUDA graph capture of "
+                  f"{self.model_name}'s step failed, its steps stay "
+                  f"eager: {e!r}")
+            return False
+        finally:
+            state.step = step
+        g.graph, g.outputs = graph, outputs
+        g.key = self.graph_key(state, pseudo_frequency)
+        return True
 
     def train_many(self, state: TrainState, steps: int,
                    pseudo_frequency: Optional[float] = None,
                    ) -> Dict[str, torch.Tensor]:
         """``steps`` train steps; each metric stacked to shape [steps].
 
-        The JAX ``train_many`` is one ``lax.scan`` program; here it is a
-        loop of eager steps, the same updates, until ROADMAP S1 replays
-        it as one CUDA graph.
+        The JAX ``train_many`` is one ``lax.scan`` program; here it is
+        ``steps`` calls of ``train_step``, the same updates, each one
+        replay of the step's CUDA graph on one card. A graph of K steps
+        would hold K steps' activations, and a replay's host time hides
+        behind a step's device time already.
         """
         out = [self.train_step(state, pseudo_frequency)
                for _ in range(steps)]
@@ -434,9 +598,9 @@ class Trainer:
         """``steps`` updates from ``loader`` (a ``HostPrefetchLoader``,
         whose producer decodes and copies while the card trains), one
         ``train_step_stream`` per batch. ``steps_per_dispatch`` is the JAX
-        trainer's streamed steps per XLA dispatch; eager steps have no
-        dispatch to share, so here it changes nothing (until ROADMAP S1
-        makes K steps one CUDA graph). Returns the state and the history:
+        trainer's streamed steps per XLA dispatch; here it changes
+        nothing: a streamed step takes a new host batch and stays eager,
+        one dispatch of its own. Returns the state and the history:
         the last step's ``loss`` and ``categorical_accuracy`` (and every
         ``log_every`` steps'), and ``clips_per_sec`` over the whole call,
         timed to the read of the last step's metrics, which waits for
@@ -533,8 +697,10 @@ class Trainer:
         re-estimates the BatchNorm statistics before each sweep
         (``recalibrate_batch_stats``, on a generator of its own per
         epoch). ``steps_per_dispatch`` is the JAX trainer's steps per XLA
-        dispatch: here it runs that many eager steps per ``train_many``
-        call, the same updates, until ROADMAP S1 makes it one CUDA graph.
+        dispatch: here it runs that many steps per ``train_many`` call,
+        the same updates; on one card each step is one replay of its
+        CUDA graph, and a new learning rate (``ReduceLROnPlateau``) or
+        pseudo frequency makes ``train_step`` capture it again.
 
         Returns the state and the history: per epoch ``loss`` and
         ``categorical_accuracy`` (of the epoch's last step),

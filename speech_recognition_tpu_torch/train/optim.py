@@ -53,17 +53,25 @@ def build_optimizer(name: str, params, learning_rate: float,
     * ``rmsprop``: Keras 2.1.2's, rho 0.9, eps 1e-8 added *outside* the
       sqrt, zero-initialised accumulator; exactly torch's RMSprop with
       ``alpha=0.9, eps=1e-8``.
+
+    On CUDA parameters Adam and RMSprop are ``capturable``: their step
+    counters live on the device, so a CUDA graph of the train step can
+    hold the update (RMSprop has no bias correction, and its update is
+    unchanged).
     """
     name = name.lower()
+    params = list(params)
+    capturable = any(p.is_cuda for p in params)
     if name == "sgd":
         return torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
                                dampening=0.0, nesterov=False)
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8)
+                                betas=(0.9, 0.999), eps=1e-8,
+                                capturable=capturable)
     if name == "rmsprop":
         return torch.optim.RMSprop(params, lr=learning_rate, alpha=0.9,
-                                   eps=1e-8)
+                                   eps=1e-8, capturable=capturable)
     raise ValueError(f"unknown optimizer {name!r}")
 
 

@@ -3,7 +3,8 @@
 ``span`` records a named interval of the host's clock into a bounded
 in-memory ring (``spans``, ``clear``; the first record of each name also
 stays for the life of the process, ``first``). The train step opens one
-at each of its phases (``train/loop.py``). While a ``torch.profiler``
+at each of its phases (``train/loop.py``), or, replayed as a CUDA graph,
+``train.replay`` alone. While a ``torch.profiler``
 capture records, a span that is a profiler range also enters
 ``torch.profiler.record_function``, which puts it on the capture's
 timeline beside the card's kernels; outside a capture it never does.

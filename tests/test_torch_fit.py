@@ -174,6 +174,36 @@ def test_checkpoint_resume_is_bit_exact(tmp_path, name):
     assert st_b.step == st.step == 5
 
 
+def test_a_card_checkpoint_resumes_on_the_cpu(tmp_path):
+    """A checkpoint saved on a card holds ``capturable`` RMSprop groups
+    (its step counters on the device); restored on the CPU the optimizer
+    keeps its own flag, and the resumed steps are those of a CPU run."""
+    def trainer():
+        ds = synthetic_device_dataset(CPU, **DATA)
+        return Trainer(NAME, prepare_model_settings(**SPEC), ds,
+                       batch_size=4, seed=3, compute_dtype="float32")
+
+    a = trainer()
+    st = a.init_state()
+    assert st.optimizer.param_groups[0]["capturable"] is False
+    _run(a, st, 2)
+    save_checkpoint(str(tmp_path / "ck.pt"), st, a.generator)
+    tree = torch.load(tmp_path / "ck.pt", weights_only=True)
+    for group in tree["optimizer"]["param_groups"]:
+        group["capturable"] = True          # as the card's optimizer
+    torch.save(tree, tmp_path / "card.pt")
+    want_losses, want_state = _run(a, st, 2)
+
+    b = trainer()
+    st_b = restore_checkpoint(str(tmp_path / "card.pt"), b.init_state(),
+                              b.generator)
+    assert st_b.optimizer.param_groups[0]["capturable"] is False
+    got_losses, got_state = _run(b, st_b, 2)
+    assert got_losses == want_losses
+    for k, t in want_state.items():
+        assert torch.equal(got_state[k], t), k
+
+
 def test_best_checkpoint_writes_only_on_improvement(tmp_path):
     trainer = _spec_trainer(batch_size=4)
     st = trainer.init_state()

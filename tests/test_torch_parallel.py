@@ -79,6 +79,8 @@ from speech_recognition_tpu_torch.parallel.mesh import (
     Mesh, make_mesh, shard_batch,
 )
 from speech_recognition_tpu_torch.train.loop import Draws, Trainer
+from speech_recognition_tpu_torch.utils.profiling import clear as clear_spans
+from speech_recognition_tpu_torch.utils.profiling import spans
 
 torch.set_num_threads(1)
 torch.backends.cudnn.allow_tf32 = False
@@ -234,6 +236,12 @@ def _rank_main(rank: int, init_method: str, work: Path) -> None:
                                        draws)
     state.model.float()
     out["eval"] = [list(_evaluate(state, b, mesh)) for b, _ in EVAL_BATCHES]
+
+    trainer = _flagship_trainer(mesh)
+    state = trainer.init_state()
+    clear_spans()
+    trainer.train_step(state)
+    out["step_spans"] = [(r.name, r.step) for r in spans()]
     torch.save(out, work / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -619,3 +627,14 @@ def test_dp_evaluate_matches_one_rank(run, i, batch):
 
 if __name__ == "__main__":
     _rank_main(int(sys.argv[1]), sys.argv[2], Path(sys.argv[3]))
+
+
+def test_a_two_rank_train_step_is_eager(run):
+    """Over W > 1 ranks ``train_step`` runs the eager step, with the
+    phase spans in order and no graph capture or replay."""
+    for r in run["ranks"]:
+        assert r["step_spans"] == [
+            ("train.draw", 0), ("train.build", 0), ("train.forward", 0),
+            ("train.loss", 0), ("train.optimizer", 0),
+            ("train.backward", 0), ("train.optimizer", 0),
+            ("train.step", 0)]

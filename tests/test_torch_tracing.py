@@ -14,8 +14,15 @@ readers of the spans (``kws_bench/metrics/``), on the CPU.
   statistics with and without a capture.
 - The readers, on synthetic records: the tail of unprofiled steps, the
   medians, and None where there is nothing to read.
+- The CUDA graph step: the CPU's step stays eager, the choice of the
+  graph (a CUDA device, one rank, no failed capture, no dispatch mode),
+  ``Trainer.graph_key`` against each change a capture must follow, and
+  ``graph_replay_share`` on synthetic records.
 """
 
+import contextlib
+import copy
+import dataclasses
 import gzip
 import json
 import types
@@ -23,11 +30,13 @@ from unittest import mock
 
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from kws_bench.metrics import _spans as KS
 from kws_bench.metrics import (
-    backward_host_ms, draw_host_ms, forward_host_ms, loss_host_ms,
-    optimizer_host_ms, setup_first_step_s, setup_init_state_s, step_host_ms,
+    backward_host_ms, draw_host_ms, forward_host_ms, graph_replay_share,
+    loss_host_ms, optimizer_host_ms, setup_first_step_s, setup_init_state_s,
+    step_host_ms,
 )
 from speech_recognition_tpu_torch.config import (
     AugmentConfig, prepare_model_settings,
@@ -36,8 +45,10 @@ from speech_recognition_tpu_torch.data import device_bank
 from speech_recognition_tpu_torch.data.device_bank import (
     synthetic_device_dataset,
 )
+from speech_recognition_tpu_torch.parallel.mesh import Mesh
 from speech_recognition_tpu_torch.tools import profile_step
-from speech_recognition_tpu_torch.train.loop import Trainer
+from speech_recognition_tpu_torch.train.loop import Trainer, TrainState
+from speech_recognition_tpu_torch.train.optim import set_learning_rate
 from speech_recognition_tpu_torch.utils import profiling as P
 
 torch.set_num_threads(1)
@@ -395,3 +406,155 @@ def test_readers_read_the_program(trained):
         setup_first_step_s)}
     assert all(v is not None and v > 0 for v in values.values()), values
     assert values["draw_host_ms"] < values["step_host_ms"]
+
+
+# -- the CUDA graph step: where it engages, its key, its reader -----------
+
+def test_a_cpu_step_is_eager(trained):
+    tr, state = trained
+    P.clear()
+    tr.train_step(state)
+    names = {r.name for r in P.spans()}
+    assert set(PHASES) <= names
+    assert not names & {"train.replay", "train.capture"}
+    assert tr._graph is None and tr.graph_error is None
+
+
+@pytest.mark.parametrize("device,world,error,watched,uses", [
+    ("cuda", 1, None, False, True),
+    ("cpu", 1, None, False, False),
+    ("cuda", 2, None, False, False),
+    ("cuda", 1, "RuntimeError('capture')", False, False),
+    ("cuda", 1, None, True, False)])
+def test_where_the_graph_engages(trained, device, world, error, watched,
+                                 uses):
+    """A CUDA device, one rank, no failed capture and no dispatch mode
+    (``FlopCounterMode``) watching the operators. Nothing runs on a
+    device: the choice alone."""
+    tr = copy.copy(trained[0])
+    tr.device, tr.mesh, tr.graph_error = (torch.device(device),
+                                          Mesh(0, world), error)
+    with (FlopCounterMode(display=False) if watched
+          else contextlib.nullcontext()):
+        assert tr._uses_graph() is uses
+
+
+def _new_child(tr, state):
+    name, child = next(iter(state.model.named_children()))
+    setattr(state.model, name, copy.deepcopy(child))
+
+
+def _new_buffer(tr, state):
+    bn = next(m for m in state.model.modules()
+              if hasattr(m, "running_mean"))
+    bn.running_mean = bn.running_mean.clone()
+
+
+def _new_parameter_data(tr, state):
+    p = next(state.model.parameters())
+    p.data = p.data.clone()
+
+
+# name -> (what is done between two keys, whether the key changes); a
+# dict it returns names the next key's state or pseudo frequency
+KEY_CASES = {
+    "nothing": (lambda tr, st: None, False),
+    "evaluate": (lambda tr, st: tr.evaluate(st), False),
+    "bn re-estimation": (
+        lambda tr, st: tr.recalibrate_batch_stats(st, 2), False),
+    "model state loaded in place": (
+        lambda tr, st: st.model.load_state_dict(st.model.state_dict()),
+        False),
+    "the default pseudo frequency named": (
+        lambda tr, st: {"pseudo_frequency": tr.augment.pseudo_frequency},
+        False),
+    "learning rate": (
+        lambda tr, st: set_learning_rate(st.optimizer, 5e-4), True),
+    "pseudo frequency": (lambda tr, st: {"pseudo_frequency": 0.2}, True),
+    "batch size": (lambda tr, st: setattr(tr, "batch_size", 8), True),
+    "augmentation": (lambda tr, st: setattr(tr, "augment", dataclasses.replace(
+        tr.augment, background_frequency=0.5)), True),
+    "optimizer state loaded": (
+        lambda tr, st: st.optimizer.load_state_dict(
+            copy.deepcopy(st.optimizer.state_dict())), True),
+    "gradients cleared": (lambda tr, st: st.optimizer.zero_grad(), True),
+    "a module swapped": (_new_child, True),
+    "a buffer replaced": (_new_buffer, True),
+    "a parameter's storage replaced": (_new_parameter_data, True),
+    "a new generator": (lambda tr, st: setattr(
+        tr, "generator", torch.Generator().manual_seed(1)), True),
+    "another state": (lambda tr, st: {"state": TrainState(
+        st.model, st.optimizer, st.step)}, True),
+}
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_the_graph_key_follows_what_a_capture_bakes_in(case):
+    """``Trainer.graph_key``, on the CPU: equal while a replay would redo
+    the eager step, different once a host value the capture baked in or
+    the storage of a tensor it reads or writes has changed."""
+    tr, state = _trainer(seed=2)
+    tr.train_step(state)            # the optimizer's state exists
+    before = tr.graph_key(state)
+    assert tr.graph_key(state) == before
+    change, moves = KEY_CASES[case]
+    after = change(tr, state)
+    after = after if isinstance(after, dict) else {}
+    key = tr.graph_key(after.get("state", state),
+                       after.get("pseudo_frequency"))
+    assert (key != before) is moves
+
+
+def _graph_steps(replayed, profiled=()):
+    """A step record per entry of ``replayed``: one holding a
+    ``train.replay`` record where it is true, else a ``train.draw``."""
+    recs = []
+    for i, r in enumerate(replayed):
+        p = i in profiled
+        step = _rec("train.step", i, 100, p)
+        inner = _rec("train.replay" if r else "train.draw", i, 10, p)
+        inner.parent = step
+        recs += [inner, step]
+    return recs
+
+
+@pytest.mark.parametrize("replayed,want", [
+    ([True] * 6, 100.0), ([False] * 6, 0.0),
+    ([False, False, True, True, True, True, True, True], 75.0)])
+def test_graph_replay_share(replayed, want):
+    layers = {"kind": "train", "steps": len(replayed)}
+    assert graph_replay_share.share(layers, _graph_steps(replayed),
+                                    True) == pytest.approx(want)
+
+
+def test_graph_replay_share_takes_the_unprofiled_tail():
+    # 300 eager steps, 300 replayed, then 20 profiled eager ones: the
+    # last 256 unprofiled steps all replayed; a 400-step window reads its
+    # last 256 too; a 2-step window its last 2
+    replayed = [False] * 300 + [True] * 300 + [False] * 20
+    recs = _graph_steps(replayed, profiled=set(range(600, 620)))
+    for steps in (600, 400, 2):
+        assert graph_replay_share.share(
+            {"kind": "train", "steps": steps}, recs, True) == 100.0
+    recs = _graph_steps([False] * 200 + [True] * 200)
+    assert graph_replay_share.share(
+        {"kind": "train", "steps": 400}, recs, True) == pytest.approx(
+        100.0 * 200 / 256)
+
+
+def test_graph_replay_share_reads_nothing_without_a_capture():
+    recs = _graph_steps([True] * 4)
+    assert graph_replay_share.share(TRAIN, recs, False) is None
+    assert graph_replay_share.share({"kind": "predict", "steps": 4}, recs,
+                                    True) is None
+    assert graph_replay_share.share({"kind": "train", "steps": 0}, recs,
+                                    True) is None
+    assert graph_replay_share.share(TRAIN, [], True) is None
+    # a program without the recorder (a parent commit's), and this CPU
+    # process, where no capture was tried
+    with mock.patch.dict("sys.modules", {
+            "speech_recognition_tpu_torch.utils.profiling":
+            types.ModuleType("profiling")}):
+        assert graph_replay_share.read(TRAIN) is None
+    assert P.first("train.capture") is None
+    assert graph_replay_share.read(TRAIN) is None
