@@ -28,6 +28,12 @@ from torch import nn
 
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
 from speech_recognition_tpu_torch.parallel.collectives import all_reduce_sum
+from speech_recognition_tpu_torch.utils.profiling import device_spans, span
+
+# Recurrent time steps run by ``GRU`` in this process, one a direction a
+# step, that run as they are made: those of a CUDA graph's capture run at
+# each replay of its graph instead (as ``decode_augment.LAUNCHES``).
+GRU_TIME_STEPS = 0
 
 # Keras defaults, as in the JAX package. Flax's momentum 0.99 weighs the
 # old running value (torch's convention would call this momentum 0.01).
@@ -508,9 +514,12 @@ class GRU(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator = None) -> torch.Tensor:
+        global GRU_TIME_STEPS
         u = self.units
         x = x.transpose(1, 2)                          # [B, T, C]
         b, t, c = x.shape
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            GRU_TIME_STEPS += t
         if self.training and self.dropout > 0.0:
             m = self._masks((3, b, 1, c), self.dropout, generator, x)
             xw = torch.cat([F.linear(x * m[i], self.weight[i * u:(i + 1) * u])
@@ -564,7 +573,13 @@ class FlaxNamed(nn.Module):
 class BiGRU(FlaxNamed):
     """Bidirectional GRU, concat merge (layers.py BiGRU; model.py:148):
     ``GRU_0`` forward and ``GRU_1`` reverse, their outputs concatenated
-    [forward, backward] on the channel axis."""
+    [forward, backward] on the channel axis.
+
+    Traced as the span ``model.gru`` (a profiler range in a capture) and,
+    on a CUDA device, timed on the card as the device spans
+    ``gru.forward`` and ``gru.backward`` (``utils/profiling.py::
+    device_spans``), which a CUDA graph of the step times at each
+    replay."""
 
     def __init__(self, in_features: int, units: int,
                  return_sequences: bool = False, dropout: float = 0.0,
@@ -577,8 +592,9 @@ class BiGRU(FlaxNamed):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator = None) -> torch.Tensor:
-        return torch.cat([gru(x, generator) for gru in self.directions],
-                         dim=1)
+        with span("model.gru"):
+            return device_spans("gru", lambda x: torch.cat(
+                [gru(x, generator) for gru in self.directions], dim=1), x)
 
 
 class Residual1D(FlaxNamed):

@@ -56,7 +56,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from speech_recognition_tpu_torch.device import require_cuda
     from speech_recognition_tpu_torch.train.loop import Trainer
     from speech_recognition_tpu_torch.utils.profiling import (
-        clear, spans, step_medians, summarize_trace, trace_context,
+        clear, reading, spans, step_medians, summarize_trace, trace_context,
     )
 
     device = (require_cuda() if args.device == "cuda"
@@ -83,6 +83,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
               f"warm-up steps):")
         for name, ms in step_medians(spans()).items():
             print(f"  {name:<56s} {ms:9.3f} ms")
+        last = state.step - 1
+        for r in spans():
+            if isinstance(r, reading) and r.step == last:
+                print(f"  card, step {last}: {r.name:<38s} "
+                      f"{r.device_ms:9.3f} ms")
     with trace_context(args.trace_dir):
         for _ in range(args.steps):
             m = trainer.train_step(state)

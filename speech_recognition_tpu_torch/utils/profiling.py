@@ -9,6 +9,11 @@ capture records, a span that is a profiler range also enters
 ``torch.profiler.record_function``, which puts it on the capture's
 timeline beside the card's kernels; outside a capture it never does.
 
+``device_spans`` times a part of the step on the card's clock instead,
+forward and backward, by CUDA timing events that a CUDA graph's capture
+keeps as nodes, so that every replay times it again; each reading joins
+the ring as a ``reading`` once its events have completed.
+
 ``trace_context`` captures a ``torch.profiler`` trace of the enclosed
 block (the card's kernels, copies and memsets by CUPTI, and the host's
 operators) into a Chrome trace, ``<log_dir>/<host>.<pid>.<ns>.pt.trace.
@@ -34,7 +39,7 @@ import re
 import socket
 import statistics
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -103,6 +108,8 @@ class span:
                 self._range.__enter__()
         else:
             self.profiled = False
+        if parent is None and _armed:
+            _mark_step(self)
         self.start_ns = _clock()
         return self
 
@@ -119,7 +126,10 @@ class span:
 
 def spans() -> List[span]:
     """The ring's records, oldest first (a span after the spans it
-    holds: records are kept as they close)."""
+    holds: records are kept as they close; a ``reading`` once its
+    events have completed, which this call looks at first)."""
+    if _armed:
+        _poll()
     return list(_ring)
 
 
@@ -137,16 +147,177 @@ def step_medians(records: List[span]) -> Dict[str, float]:
     """Each name's host ms a step, the median over the steps of the
     unprofiled ``train.step`` records among ``records``: ``train.step``'s
     own duration, and each other name's summed over its records of the
-    step."""
+    step. Device spans' ``reading`` records are left out."""
     steps = {r.step for r in records
              if r.name == "train.step" and not r.profiled}
     per: Dict[str, Dict[int, int]] = collections.defaultdict(
         lambda: dict.fromkeys(steps, 0))
     for r in records:
-        if r.step in steps and not r.profiled:
+        if not isinstance(r, reading) and r.step in steps \
+                and not r.profiled:
             per[r.name][r.step] += r.end_ns - r.start_ns
     return {name: statistics.median(v.values()) / 1e6
             for name, v in per.items()}
+
+
+# -- device spans -------------------------------------------------------
+#
+# A pair of CUDA timing events on the current stream times a device span.
+# Recorded eagerly, a pair belongs to the step whose top-level span was
+# open. Recorded while a CUDA graph is captured, its events are
+# ``external``, so the capture keeps each record as a node of the graph
+# and every replay records them again, with no Python of the model
+# running; such a pair is put down to the step whose top-level span
+# last recorded a marker event (each does, once a device span exists)
+# if the pair's start comes after that marker on the card's clock. A
+# pair is never waited for: it is read once its end event has completed
+# (``query``), at the start of a top-level span and by ``spans()``. A
+# replay records over its graph's pairs, so where the host keeps ahead
+# of the card a replayed step is read only before a wait for the card.
+
+# pairs of captured graphs kept for reading (older captures' drop out)
+BAKED_PAIRS = 16
+# eagerly recorded pairs waiting for their end event
+PENDING_PAIRS = 256
+
+_armed = False                 # a device span has run in this process
+_pending: "collections.deque[_Pair]" = collections.deque(
+    maxlen=PENDING_PAIRS)
+_baked: "collections.deque[_Pair]" = collections.deque(maxlen=BAKED_PAIRS)
+# the latest top-level span's marker: (event, step id, profiled)
+_marker: Optional[Tuple[Any, Optional[int], bool]] = None
+
+
+class reading:
+    """A device span's record in the ring: ``name``, the ``step`` id and
+    ``profiled`` flag of the step that ran it, no ``parent``, and
+    ``device_ms``, the card's time from its start event to its end."""
+
+    __slots__ = ("name", "step", "parent", "profiled", "device_ms")
+
+    def __init__(self, name: str, step: Optional[int], profiled: bool,
+                 device_ms: float):
+        self.name = name
+        self.step = step
+        self.parent = None
+        self.profiled = profiled
+        self.device_ms = device_ms
+
+
+class _Pair:
+    __slots__ = ("name", "start", "end", "step", "profiled", "read")
+
+
+def _event():
+    """A timing event recorded on the current stream; ``external``, so
+    that a graph capture keeps it as a node."""
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    return ev
+
+
+def _begin(name: str) -> _Pair:
+    global _armed
+    _armed = True
+    p = _Pair()
+    p.name, p.read, p.start = name, None, _event()
+    return p
+
+
+def _end(p: _Pair) -> None:
+    p.end = _event()
+    if torch.cuda.is_current_stream_capturing():
+        _baked.append(p)
+        return
+    root = _open
+    while root is not None and root.parent is not None:
+        root = root.parent
+    p.step = None if root is None else root.step
+    p.profiled = _profiling() if root is None else root.profiled
+    _pending.append(p)
+
+
+def _mark_step(top: span) -> None:
+    """At the start of top-level span ``top``: read what has completed,
+    then record the marker that a replay inside ``top`` comes after."""
+    global _marker
+    if torch.cuda.is_current_stream_capturing():
+        return
+    _poll()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    _marker = (ev, top.step, top.profiled)
+
+
+def _poll() -> None:
+    """Move every pair whose end event has completed into the ring."""
+    while _pending and _pending[0].end.query():
+        p = _pending.popleft()
+        _ring.append(reading(p.name, p.step, p.profiled,
+                             p.start.elapsed_time(p.end)))
+    if _marker is None:
+        return
+    ev, step, profiled = _marker
+    for p in _baked:
+        if p.read is ev or not p.end.query() or not ev.query():
+            continue
+        try:            # a start before the marker reads below 0
+            fresh = ev.elapsed_time(p.start) >= 0.0
+            ms = p.start.elapsed_time(p.end)
+        except RuntimeError:        # its graph has not run
+            continue
+        p.read = ev
+        if fresh:
+            _ring.append(reading(p.name, step, profiled, ms))
+
+
+class _OnBackward(torch.autograd.Function):
+    """``x`` as it is (a view: no kernel), calling ``fn`` when its
+    gradient arrives in the backward, which passes through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.fn()
+        return grad, None
+
+
+def on_backward(x: torch.Tensor, fn: Callable[[], None]) -> torch.Tensor:
+    """``x``, with ``fn`` called when the backward reaches it."""
+    return _OnBackward.apply(x, fn)
+
+
+def device_spans(name: str, fn: Callable[[torch.Tensor], torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)``, timed on the card as two device spans:
+    ``<name>.forward`` from the call's start to its end and, where ``x``
+    needs a gradient, ``<name>.backward`` from the arrival of the
+    output's gradient in the backward to that of ``x``'s. Where ``x`` is
+    not on a CUDA device, ``fn(x)`` alone."""
+    if x.device.type != "cuda":
+        return fn(x)
+    forward = _begin(f"{name}.forward")
+    backward: List[_Pair] = []
+
+    def backward_begins() -> None:
+        backward.append(_begin(f"{name}.backward"))
+
+    def backward_ends() -> None:
+        if backward:
+            _end(backward.pop())
+
+    track = torch.is_grad_enabled() and x.requires_grad
+    if track:
+        x = on_backward(x, backward_ends)
+    y = fn(x)
+    if track:
+        y = on_backward(y, backward_begins)
+    _end(forward)
+    return y
 
 
 @contextlib.contextmanager
