@@ -58,6 +58,13 @@ with the host compiler at its first use) and drives these paths:
   ``vjp_grad`` call's, ``vjp_grad``'s host time split into autograd's
   own, the forward's and the backward wrapper's, and ``ptxas -v``'s
   registers, shared memory and spills for each kernel;
+- the GRU recurrence (``[gru]``): holds the forward and backward kernels
+  (``ops/kernels/gru.py``) against their plain twin at the zoo's two
+  BiGRU shapes, batch 384, both directions with masks, bf16 operands over
+  f32 projections (the train step's); prints ``ptxas -v``'s lines and
+  ``benchmark_gru``: the layer's train forward and backward through the
+  kernels and through the loop over time, each kernel alone and the
+  Predictor's f32 forward, against the kernels' bound;
 - data-parallel training (``[dp]``): two ranks, spawned processes joined
   by NCCL when each has a card of its own and by gloo when they share
   one. Each rank builds and replicates the full-corpus bank, holds
@@ -198,7 +205,12 @@ DEVICE_ITERS = 50
 DEVICE_TRACES = 3
 L2_FLUSH_BYTES = 64 << 20
 DECODE_KERNEL = r"decode_augment_kernel"
-KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd")
+KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd",
+                  "gru_recurrence")
+# GRU recurrence, kernels against their plain twin: the largest gap over
+# the largest value. bf16 operands: a sum in another order may round one
+# operand the other way, and 50 steps carry it on.
+GRU_RTOL = 2e-2
 # separable block, kernel against its plain version on the same inputs:
 # y (rtol of |plain|, atol). y in f32 (TF32 off) differs only in the order
 # of the f32 sums of up to 3 x 512 products, |y| < ~10. In bf16 the two f32
@@ -381,6 +393,28 @@ def decode_augment_runs() -> int:
     from speech_recognition_tpu_torch.train import loop
 
     return K.LAUNCHES + loop.REPLAYS
+
+
+def reset_gru_runs() -> None:
+    """Set the GRU kernels' launches and captured launches to 0 (the
+    graph replays are set to 0 by ``reset_decode_augment_runs``)."""
+    from speech_recognition_tpu_torch.ops.kernels import gru as G
+
+    for counts in (G.LAUNCHES, G.CAPTURED):
+        for kernel in counts:
+            counts[kernel] = 0
+
+
+def gru_runs() -> dict:
+    """The GRU kernels' runs on the card since ``reset_gru_runs`` and
+    ``reset_decode_augment_runs``, by kernel: the launches that ran as
+    they were made, and each replay of the train step's CUDA graph times
+    the launches its capture recorded."""
+    from speech_recognition_tpu_torch.ops.kernels import gru as G
+    from speech_recognition_tpu_torch.train import loop
+
+    return {kernel: G.LAUNCHES[kernel] + loop.REPLAYS * G.CAPTURED[kernel]
+            for kernel in G.LAUNCHES}
 
 
 def log(msg: str) -> None:
@@ -1223,6 +1257,91 @@ def separable_bwd_phase(device, card: str, build_s: float,
     }
 
 
+def gru_phase(device, card: str, build_s: float, ptxas: list[str]) -> dict:
+    """The [gru] phase: the recurrence kernels against their plain twin at
+    ``GRU_SHAPES``, then ``benchmark_gru``. The bound of the two kernels
+    (``bound_ms``) is the larger of the bytes the recurrence has to move
+    over 3.35 TB/s (its inputs read once: the projections, the last
+    state's gradient, the recurrent weights and masks; its outputs
+    written once: the last state and the projections' gradient) and its
+    products' FLOPs over 989 TFLOP/s. The forward's saves (yz, yr, hh and
+    the states in f32, written and read back; the products' A operands,
+    written for the weights' gradients) are the design's own traffic,
+    logged beside it and left out of the bound. The record's launches
+    are filled in by ``[zoo]``'s BiGRU train steps (``gru_runs``)."""
+    from speech_recognition_tpu_torch.export.benchmark import (
+        GRU_BATCH, GRU_SHAPES, benchmark_gru,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import gru as G
+
+    for line in ptxas:
+        log(f"[gru] ptxas -v {line}")
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max())
+    worst, bounds = 0.0, {}
+    for name, (_, u, t) in GRU_SHAPES.items():
+        g = torch.Generator().manual_seed(4)
+        xws = [torch.randn(GRU_BATCH, t, 3 * u, generator=g).to(device)
+               for _ in range(2)]
+        wzr, wh = ((torch.randn(2, n * u, u, generator=g) / u ** 0.5).to(
+            device, torch.bfloat16) for n in (2, 1))
+        rm = ((torch.rand(2, 3, GRU_BATCH, u, generator=g) > 0.2).float()
+              / 0.8).to(device)
+        reverse = (False, True)
+        got = G.gru_forward(xws, wzr, wh, rm, reverse)
+        want = G.gru_forward_plain(xws, wzr, wh, rm, reverse)
+        dlast = torch.randn(got[0].shape, generator=g).to(device)
+        dxw = G.gru_backward(dlast, None, wzr, wh, rm, reverse, want[1],
+                             *want[2][:3], torch.float32)
+        dxw_plain = G.gru_backward_plain(dlast, None, wzr, wh, rm, reverse,
+                                         want[1], *want[2][:3],
+                                         torch.float32)
+        errs = [rel(got[0], want[0]), rel(got[1], want[1]),
+                rel(dxw, dxw_plain)]
+        torch.cuda.synchronize()
+        if not max(errs) <= GRU_RTOL:
+            raise RuntimeError(f"[gru] {name}: kernels against the plain "
+                               f"twin (last, states, dxw): {errs}")
+        worst = max(worst, *errs)
+        rows = 2 * GRU_BATCH * t
+        io, op = xws[0].element_size(), wzr.element_size()
+        nbytes = (2 * rows * 3 * u * io                     # xw, dxw
+                  + 2 * got[0].numel() * io                 # last, dlast
+                  + (wzr.numel() + wh.numel()) * op + rm.numel() * 4)
+        saves = rows * 4 * u * 4 * 2 + rows * 3 * u * op
+        flops = 2 * 2 * rows * 3 * u * u
+        bounds[name] = max(nbytes / 3.35e12, flops / 989e12) * 1e3
+        log(f"[gru] {name} B={GRU_BATCH} T={t} u={u}: kernels against the "
+            f"plain twin, largest gap over largest value: last {errs[0]:.3g}"
+            f", states {errs[1]:.3g}, dxw {errs[2]:.3g} (tol {GRU_RTOL}); "
+            f"bound {bounds[name]:.4f} ms ({nbytes / 1e6:.1f} MB in and "
+            f"out, {flops / 1e9:.2f} GFLOP); the saves' own traffic "
+            f"{saves / 1e6:.1f} MB, {saves / 3.35e9:.4f} ms more")
+    records = benchmark_gru(device)
+    for r in records:
+        log(f"[gru] {r['shape']} batch {r['batch']}: train forward+backward "
+            f"{r['train_kernel_ms']:.4f} ms through the kernels, "
+            f"{r['train_loop_ms']:.4f} ms through the loop; forward kernel "
+            f"{r['forward_kernel_ms']:.4f} ms, backward kernel "
+            f"{r['backward_kernel_ms']:.4f} ms; f32 eval forward "
+            f"{r['eval_f32_kernel_ms']:.4f} / {r['eval_f32_loop_ms']:.4f} "
+            f"ms; build {build_s:.1f} s | {card}")
+    main = records[0]
+    return {
+        "name": "gru_recurrence",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/gru_recurrence.cu",
+        "replaces": None,
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": main["forward_kernel_ms"] + main["backward_kernel_ms"],
+        "plain_ms": main["train_loop_ms"],
+        "bound_ms": bounds[main["shape"]],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
 def edge_case_draws(trainer, ds, starts=(0,)):
     """A training batch's draws with the kernel's edge cases written in
     from each row of ``starts``: zero and most-negative shifts, silence
@@ -1738,7 +1857,7 @@ def _to(x, device):
     return x.to(device)
 
 
-def zoo_phase(device, card: str, ds, settings) -> int:
+def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
     """The [zoo] phase, on [slice]'s full-corpus bank ``ds``: for each of
     the 23 models of ``ZOO_PARAMS``, at its golden's geometry (98 frames;
     60 mel features, 40 for ``ZOO_MEL_40``; 257 bins), its parameter
@@ -1752,13 +1871,15 @@ def zoo_phase(device, card: str, ds, settings) -> int:
     ``ZOO_STEPS``), the models whose capture failed listed, the kernel
     against its plain version on one of the model's own draws, and the
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
-    against the events' step. Returns the runs of decode+augment in
-    the trainers' timed steps (read before the comparison and the
-    trace)."""
+    against the events' step. A model with BiGRUs runs each GRU kernel
+    once a BiGRU and step, launched or replayed (``gru_runs``). Returns
+    the runs of decode+augment in the trainers' steps and those of the
+    GRU kernels by model (read before the comparison and the trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train, traced_train_device_time,
     )
+    from speech_recognition_tpu_torch.models.layers import BiGRU
     from speech_recognition_tpu_torch.models.zoo import (
         MODEL_REGISTRY, build_model,
     )
@@ -1772,7 +1893,7 @@ def zoo_phase(device, card: str, ds, settings) -> int:
     if missing:
         raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
     clips = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
-    total = 0
+    total, gru_total = 0, {}
     for name, golden in ZOO_PARAMS.items():
         t0 = time.perf_counter()
         s = dataclasses.replace(settings, num_log_mel_features=(
@@ -1816,14 +1937,24 @@ def zoo_phase(device, card: str, ds, settings) -> int:
         state = trainer.init_state()
         torch.cuda.reset_peak_memory_stats()
         reset_decode_augment_runs()
+        reset_gru_runs()
         result = benchmark_train(trainer, state, steps=ZOO_STEPS,
                                  warmup=ZOO_WARMUP)
         launches, replays = decode_augment_runs(), loop.REPLAYS
+        grus = gru_runs()
         losses = result["losses"]
         if launches != ZOO_STEPS + ZOO_WARMUP:
             raise RuntimeError(f"[zoo] {name}: {launches} decode_augment "
                                f"runs in {ZOO_STEPS + ZOO_WARMUP} train "
                                f"steps")
+        bigrus = sum(isinstance(m, BiGRU) for m in state.model.modules())
+        want = (ZOO_STEPS + ZOO_WARMUP) * bigrus
+        if grus != {"forward": want, "backward": want}:
+            raise RuntimeError(f"[zoo] {name}: GRU kernel runs {grus} in "
+                               f"{ZOO_STEPS + ZOO_WARMUP} train steps of "
+                               f"{bigrus} BiGRU(s)")
+        if bigrus:
+            gru_total[name] = sum(grus.values())
         if trainer.graph_error is not None:
             eager.append(name)
         if len(losses) != ZOO_STEPS + ZOO_WARMUP \
@@ -1841,7 +1972,7 @@ def zoo_phase(device, card: str, ds, settings) -> int:
             f"losses {[round(v, 4) for v in losses]}; decode_augment "
             f"runs {launches} ({replays} in replays of the step's CUDA "
             f"graph; capture error: {trainer.graph_error}), vs plain "
-            f"{kernel_err:.3g}")
+            f"{kernel_err:.3g}; GRU kernel runs {grus}")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
             f"{result['ms_per_step']:.3f} ms/step, "
             f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
@@ -1859,9 +1990,10 @@ def zoo_phase(device, card: str, ds, settings) -> int:
         del trainer, state
         torch.cuda.empty_cache()
     log(f"[zoo] phase {time.perf_counter() - phase_t0:.1f} s, "
-        f"decode_augment runs {total}; models whose capture of the train "
-        f"step failed, their steps eager: {eager or 'none'}")
-    return total
+        f"decode_augment runs {total}; GRU kernel runs {gru_total}; models "
+        f"whose capture of the train step failed, their steps eager: "
+        f"{eager or 'none'}")
+    return total, gru_total
 
 
 def hold_decode_augment(bank, bg_flat, d, label: str) -> float:
@@ -3111,6 +3243,9 @@ def main() -> int:
         ptxas["separable_block_bwd"]))
     profile_separable(device)
     vjp_host_account(device, card)
+    gru_kernel = gru_phase(device, card, builds["gru_recurrence"][1],
+                           ptxas["gru_recurrence"])
+    separable_kernels.append(gru_kernel)
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -3172,7 +3307,9 @@ def main() -> int:
     # set to 0 just before its steps
     del trainer, state
     torch.cuda.empty_cache()
-    zoo_launches = zoo_phase(device, card, ds, settings)
+    zoo_launches, gru_zoo = zoo_phase(device, card, ds, settings)
+    gru_kernel["launches_by_path"] = {"zoo": sum(gru_zoo.values())}
+    gru_kernel["launches"] = sum(gru_zoo.values())
 
     # 8. data-parallel training, in processes of their own
     del ds, d, bg, args

@@ -6,7 +6,8 @@ FLOPs (``train_step_flops``), inference (``benchmark_inference`` and
 ``traced_inference_device_time``), and the separable-block kernels at the
 flagship's trunk shapes: the forward (port of
 scripts/bench_separable_kernel.py) and the forward with its gradients
-(the path of the JAX package's custom VJP).
+(the path of the JAX package's custom VJP), and the GRU recurrence
+kernels against the loop over time (``benchmark_gru``).
 
 Each times a run of calls with a pair of ``torch.cuda.Event``s on the
 current stream and a final ``torch.cuda.synchronize()``: the elapsed
@@ -383,6 +384,113 @@ def benchmark_separable_block_grads(device: torch.device | str = "cuda"
         for name, fn in variants.items():
             record[f"{name}_ms"] = time_calls(fn, SEPARABLE_ITERS,
                                               SEPARABLE_RUNS)
+        record["device"] = torch.cuda.get_device_name(device)
+        records.append(record)
+    return records
+
+
+# (input channels, units, time steps) of the zoo's two BiGRUs:
+# xception_with_attention's and conv_1d_simple's
+GRU_SHAPES = {"xception_with_attention": (384, 192, 50),
+              "conv_1d_simple": (224, 128, 10)}
+GRU_BATCH = 384
+
+
+def _graph_ms(body: Callable[[], Any], generator: torch.Generator,
+              iters: int = 20, runs: int = 3) -> float:
+    """``body`` captured in a CUDA graph of its own (after two warm-up
+    runs on a side stream), then ``time_calls`` of its replays: the
+    card's pace, whatever the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        body()
+    return time_calls(graph.replay, iters, runs)
+
+
+def benchmark_gru(device: torch.device | str = "cuda"
+                  ) -> List[Dict[str, Any]]:
+    """ms per call of a BiGRU at each of ``GRU_SHAPES``, batch 384, each
+    body captured in a CUDA graph and timed over its replays.
+
+    ``train_kernel_ms`` / ``train_loop_ms``: the train step's BiGRU
+    (dropout and recurrent dropout 0.2, bf16 autocast), forward and
+    backward from the input to every gradient, through the recurrence
+    kernels (``BiGRU.run``) and through the loop over time (``GRU.loop``
+    of each direction); ``forward_kernel_ms`` / ``backward_kernel_ms``:
+    the two kernel launches alone on that layer's inputs and saves;
+    ``eval_f32_kernel_ms`` / ``eval_f32_loop_ms``: the Predictor's
+    forward (eval mode, float32). One record per shape.
+    """
+    from speech_recognition_tpu_torch.models.layers import (
+        BiGRU, init_parameters,
+    )
+    from speech_recognition_tpu_torch.ops.kernels import gru as G
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"benchmark_gru measures a CUDA device, not "
+                           f"{device}")
+    records = []
+    for name, (c, u, t) in GRU_SHAPES.items():
+        gru = BiGRU(c, u, dropout=0.2, recurrent_dropout=0.2)
+        init_parameters(gru, torch.Generator().manual_seed(0))
+        gru = gru.to(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        x = torch.randn(GRU_BATCH, c, t, device=device, requires_grad=True)
+        params = [x, *gru.parameters()]
+        loop = lambda x: torch.cat([g.loop(x, gen) for g in gru.directions],
+                                   dim=1)
+
+        def train(fn):
+            def body():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    y = fn(x)
+                torch.autograd.grad(y.float().square().sum(), params)
+            return body
+
+        def evaluate(fn):
+            def body():
+                with torch.no_grad():
+                    fn(x)
+            return body
+
+        record = dict(shape=name, batch=GRU_BATCH, channels=c, units=u,
+                      steps=t)
+        gru.train()
+        record["train_kernel_ms"] = _graph_ms(
+            train(lambda x: gru.run(x, gen)), gen)
+        record["train_loop_ms"] = _graph_ms(train(loop), gen)
+        # the kernels alone, on the train step's inputs
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            proj = [g.project(x.transpose(1, 2), gen)
+                    for g in gru.directions]
+        xws = [p for p, _ in proj]
+        rm = torch.stack([m for _, m in proj]).float()
+        wzr = torch.stack([g.recurrent_weight_zr.detach()
+                           for g in gru.directions]).bfloat16()
+        wh = torch.stack([g.recurrent_weight_h.detach()
+                          for g in gru.directions]).bfloat16()
+        reverse = (False, True)
+        last, hseq, (yz, yr, hh, _) = G.gru_forward(xws, wzr, wh, rm,
+                                                    reverse)
+        dlast = torch.randn_like(last)
+        record["forward_kernel_ms"] = _graph_ms(
+            lambda: G.gru_forward(xws, wzr, wh, rm, reverse), gen)
+        record["backward_kernel_ms"] = _graph_ms(
+            lambda: G.gru_backward(dlast, None, wzr, wh, rm, reverse, hseq,
+                                   yz, yr, hh, xws[0].dtype), gen)
+        gru.eval()
+        record["eval_f32_kernel_ms"] = _graph_ms(
+            evaluate(lambda x: gru.run(x)), gen)
+        record["eval_f32_loop_ms"] = _graph_ms(evaluate(loop), gen)
         record["device"] = torch.cuda.get_device_name(device)
         records.append(record)
     return records

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+from speech_recognition_tpu_torch.ops.kernels.gru import gru_recurrence
 from speech_recognition_tpu_torch.parallel.collectives import all_reduce_sum
 from speech_recognition_tpu_torch.utils.profiling import device_spans, span
 
@@ -474,11 +475,13 @@ class GRU(nn.Module):
     variational masks: three per-gate input masks (3, B, 1, C) and three
     recurrent masks (3, B, u), each drawn once per call from the caller's
     generator (input first, then recurrent) and held over every step.
-    The input projection of all steps is one product per gate; the
-    recurrence is a loop over time, since cuDNN's GRU has neither this
-    cell nor these masks. Under bf16 autocast the projections come out
-    in bf16, so the recurrent state is bf16 too, as the JAX bf16 recipe
-    runs its whole scan in bf16.
+    The input projection of all steps is one product per gate (cuDNN's
+    GRU has neither this cell nor these masks). On a CUDA device the
+    recurrence is one kernel launch a pass (``gru_directions``: an f32
+    state, the products at bf16 or higher); elsewhere it is a loop over
+    time, whose state under bf16 autocast is in the projections' dtype
+    (bf16 in eval mode, f32 where the masked projections add the f32
+    bias).
     """
 
     KERNELS = ("weight", "recurrent_weight_zr", "recurrent_weight_h")
@@ -512,11 +515,13 @@ class GRU(nn.Module):
                          batch_axis=1)
         return keep.to(like.dtype) / (1.0 - rate)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator = None) -> torch.Tensor:
+    def project(self, x: torch.Tensor, generator: torch.Generator = None):
+        """The input projections of ``x`` [B, T, C]: [B, T, 3u] (z, r, h),
+        and the recurrent masks (3, B, u), or None without recurrent
+        dropout; the masks drawn from ``generator``, input first. Counts
+        the time steps in ``GRU_TIME_STEPS``."""
         global GRU_TIME_STEPS
         u = self.units
-        x = x.transpose(1, 2)                          # [B, T, C]
         b, t, c = x.shape
         if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
             GRU_TIME_STEPS += t
@@ -529,6 +534,19 @@ class GRU(nn.Module):
         rm = None
         if self.training and self.recurrent_dropout > 0.0:
             rm = self._masks((3, b, u), self.recurrent_dropout, generator, x)
+        return xw, rm
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator = None) -> torch.Tensor:
+        return gru_directions([self], x, generator)
+
+    def loop(self, x: torch.Tensor,
+             generator: torch.Generator = None) -> torch.Tensor:
+        """The recurrence as a loop over time: the CPU's path, and the
+        yardstick the kernel is held to on a card."""
+        u = self.units
+        xw, rm = self.project(x.transpose(1, 2), generator)
+        b, t = xw.shape[:2]
         w_z, w_r = self.recurrent_weight_zr[:u], self.recurrent_weight_zr[u:]
         h = xw.new_zeros(b, u)
         hs = []
@@ -547,6 +565,40 @@ class GRU(nn.Module):
         if self.reverse:
             hs.reverse()
         return torch.stack(hs, dim=2)                  # NCW [B, u, T]
+
+
+def gru_directions(grus: Sequence[GRU], x: torch.Tensor,
+                   generator: torch.Generator = None) -> torch.Tensor:
+    """The GRU layers ``grus`` (one, or a BiGRU's two directions) on one
+    NCW input, the outputs concatenated on the channel axis: [B, D u], or
+    NCW [B, D u, T]. On a CUDA device through the recurrence kernel
+    (``gru_kernel``), elsewhere each layer's ``loop`` in turn."""
+    if x.is_cuda:
+        return gru_kernel(grus, x, generator)
+    return torch.cat([gru.loop(x, generator) for gru in grus], dim=1)
+
+
+def gru_kernel(grus: Sequence[GRU], x: torch.Tensor,
+               generator: torch.Generator = None) -> torch.Tensor:
+    """``gru_directions`` through the recurrence kernel
+    (``ops/kernels/gru.py``; its plain twin for CPU tensors), one launch a
+    pass for all of ``grus``: each layer's projections and masks as its
+    ``project`` makes them, in turn. The products' operands
+    are bfloat16 under bf16 autocast (as the loop's ``F.linear``), else in
+    the projections' dtype."""
+    x = x.transpose(1, 2)                          # [B, T, C]
+    projected = [gru.project(x, generator) for gru in grus]
+    xws = [xw for xw, _ in projected]
+    op = xws[0].dtype
+    if torch.is_autocast_enabled(x.device.type):
+        op = torch.get_autocast_dtype(x.device.type)
+    wzr = torch.stack([gru.recurrent_weight_zr for gru in grus]).to(op)
+    wh = torch.stack([gru.recurrent_weight_h for gru in grus]).to(op)
+    rm = None
+    if projected[0][1] is not None:
+        rm = torch.stack([m for _, m in projected]).float()
+    return gru_recurrence(xws, wzr, wh, rm, [gru.reverse for gru in grus],
+                          grus[0].return_sequences)
 
 
 class FlaxNamed(nn.Module):
@@ -579,7 +631,8 @@ class BiGRU(FlaxNamed):
     on a CUDA device, timed on the card as the device spans
     ``gru.forward`` and ``gru.backward`` (``utils/profiling.py::
     device_spans``), which a CUDA graph of the step times at each
-    replay."""
+    replay. On a CUDA device both directions share one kernel launch a
+    pass (``gru_directions``)."""
 
     def __init__(self, in_features: int, units: int,
                  return_sequences: bool = False, dropout: float = 0.0,
@@ -593,8 +646,12 @@ class BiGRU(FlaxNamed):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator = None) -> torch.Tensor:
         with span("model.gru"):
-            return device_spans("gru", lambda x: torch.cat(
-                [gru(x, generator) for gru in self.directions], dim=1), x)
+            return device_spans("gru", lambda x: self.run(x, generator), x)
+
+    def run(self, x: torch.Tensor,
+            generator: torch.Generator = None) -> torch.Tensor:
+        """Both directions without the spans (``gru_directions``)."""
+        return gru_directions(self.directions, x, generator)
 
 
 class Residual1D(FlaxNamed):

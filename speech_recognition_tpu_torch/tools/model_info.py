@@ -16,14 +16,18 @@ fits the reference's Pi budget (fewer than 1,250,000 weights and
 ``torch.utils.flop_counter.FlopCounterMode`` over one eval-mode forward
 of ``--batch_size`` zero clips' features: 2 per multiply-add of the
 matrix products and convolutions, nothing for elementwise work,
-normalisation or the frontend. The JAX script's figure is XLA's cost
-analysis of the compiled forward, which also counts elementwise work,
-so the two are not the same measure (``flops_method`` says which).
+normalisation or the frontend. The count runs on a CPU copy of the
+model whatever ``--device``: on a card a GRU's recurrence runs in a
+kernel of its own (``ops/kernels/gru.py``), whose products the counter
+cannot see. The JAX script's figure is XLA's cost analysis of the
+compiled forward, which also counts elementwise work, so the two are
+not the same measure (``flops_method`` says which).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import sys
 from typing import Any, Dict, List, Optional
@@ -55,11 +59,19 @@ def model_info(name: str, settings, batch_size: int = 1,
     n_params = sum(p.numel() for p in model.parameters())
     n_stats = sum(m.running_mean.numel() + m.running_var.numel()
                   for m in model.modules() if isinstance(m, BatchNorm))
-    wav = torch.zeros((batch_size, settings.desired_samples), device=device)
-    x = Frontend(settings, "highest").features(wav, spec.representation)
+
+    def features(on):
+        wav = torch.zeros((batch_size, settings.desired_samples), device=on)
+        return Frontend(settings, "highest").features(wav, spec.representation)
+
     counter = FlopCounterMode(display=False)
-    with torch.no_grad(), counter:
-        model(x)
+    on_cpu = model if device.type == "cpu" else copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        if on_cpu is not model:
+            model(features(device))
+        x = features("cpu")
+        with counter:
+            on_cpu(x)
     f32_bytes = (n_params + n_stats) * 4
     return {
         "model": name,

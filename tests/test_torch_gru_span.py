@@ -279,9 +279,10 @@ def _gru_ms(steps):
 
 def _gru_alone(bigru, device, batch=BATCH, n=10):
     """A function that times (card ms) the forward and backward of a
-    copy of ``bigru``'s two directions on a [batch, 384, 50] input under
-    bf16 autocast, captured alone in a CUDA graph of its own, by events
-    around ``n`` replays."""
+    copy of ``bigru``'s two directions (``BiGRU.run``: one kernel launch
+    a pass, no spans) on a [batch, 384, 50] input under bf16 autocast,
+    captured alone in a CUDA graph of its own, by events around ``n``
+    replays."""
     gru = copy.deepcopy(bigru)
     for p in gru.parameters():
         p.grad = None
@@ -291,7 +292,7 @@ def _gru_alone(bigru, device, batch=BATCH, n=10):
 
     def body():
         with torch.autocast("cuda", dtype=torch.bfloat16):
-            y = _by_hand(gru, x, gen)
+            y = gru.run(x, gen)
         y.float().square().sum().backward()
 
     side = torch.cuda.Stream()
@@ -322,9 +323,9 @@ def test_a_replayed_reading_is_the_grus_own_time(cuda):
     """A replayed step's ``gru.forward`` + ``gru.backward``, waited for
     step by step, against the BiGRU's forward and backward captured alone
     and timed by events around its graph's replays, in turns: medians
-    within 5 %. (An eager step is no yardstick: its GRU launches ~80
-    kernels a time step from Python, so its spans read the host's pace,
-    4-44x the card's.)"""
+    within 5 %. (An eager step is no yardstick: its spans read the
+    host's pace, which was 4-44x the card's when the GRU launched ~80
+    kernels a time step from Python.)"""
     tr, state = _trainer(cuda)
     P.clear()
     for _ in range(2):                          # eager, then the capture
