@@ -187,6 +187,8 @@ import types
 import numpy as np
 import torch
 
+from speech_recognition_tpu_torch.ops.kernels import launch
+
 MODEL = "conv_1d_time_sliced_with_attention"
 BATCH = 384
 T = 16000
@@ -372,49 +374,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
-def reset_decode_augment_runs() -> None:
-    """Set decode+augment's launches and the graph replays to 0."""
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
-    from speech_recognition_tpu_torch.train import loop
-
-    K.LAUNCHES = loop.REPLAYS = 0
-
-
-def decode_augment_runs() -> int:
-    """decode+augment's runs on the card since
-    ``reset_decode_augment_runs``: the kernel's launches that ran as they
-    were made, and the replays of the train step's CUDA graph, each of
-    which runs the launch its capture recorded (and did not count)."""
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
-    from speech_recognition_tpu_torch.train import loop
-
-    return K.LAUNCHES + loop.REPLAYS
-
-
-def reset_gru_runs() -> None:
-    """Set the GRU kernels' launches and captured launches to 0 (the
-    graph replays are set to 0 by ``reset_decode_augment_runs``)."""
-    from speech_recognition_tpu_torch.ops.kernels import gru as G
-
-    for counts in (G.LAUNCHES, G.CAPTURED):
-        for kernel in counts:
-            counts[kernel] = 0
-
-
-def gru_runs() -> dict:
-    """The GRU kernels' runs on the card since ``reset_gru_runs`` and
-    ``reset_decode_augment_runs``, by kernel: the launches that ran as
-    they were made, and each replay of the train step's CUDA graph times
-    the launches its capture recorded."""
-    from speech_recognition_tpu_torch.ops.kernels import gru as G
-    from speech_recognition_tpu_torch.train import loop
-
-    return {kernel: G.LAUNCHES[kernel] + loop.REPLAYS * G.CAPTURED[kernel]
-            for kernel in G.LAUNCHES}
+def separable_runs() -> dict:
+    """The separable block's kernels' runs (``launch.runs``) by variant:
+    the forward's ``fuse`` and ``fold``, the backward's ``bwd``."""
+    runs = launch.runs()
+    return {"fuse": runs["separable_block.fuse"],
+            "fold": runs["separable_block.fold"],
+            "bwd": runs["separable_block_bwd"]}
 
 
 def log(msg: str) -> None:
@@ -650,7 +616,7 @@ def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = dict(S.LAUNCHES)
+    before = separable_runs()
     calls = {"fuse": 0, "fold": 0}
     worst = {"fuse": 0.0, "fold": 0.0}
     failures = []
@@ -737,19 +703,19 @@ def separable_phase(device, card: str, build_s: float, ptxas: list[str]):
         f"the prologue and with emit_stats=False: checked")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
-    rose = {v: S.LAUNCHES[v] - before[v] for v in calls}
+    after = separable_runs()
+    rose = {v: after[v] - before[v] for v in calls}
     if rose != calls:
-        raise RuntimeError(f"separable LAUNCHES rose by {rose} in {calls} "
+        raise RuntimeError(f"separable runs rose by {rose} in {calls} "
                            f"calls")
     if failures:
         raise RuntimeError("separable kernel against its plain version: "
                            + "; ".join(failures))
 
     # the path: the block benchmark, with the counts set to 0 just before
-    for variant in S.LAUNCHES:
-        S.LAUNCHES[variant] = 0
+    launch.reset_runs()
     records = benchmark_separable_blocks(device)
-    launches = dict(S.LAUNCHES)
+    launches = separable_runs()
     expected = len(SEPARABLE_SHAPES) * (1 + SEPARABLE_ITERS * SEPARABLE_RUNS)
     if launches != {"fuse": expected, "fold": expected, "bwd": 0}:
         raise RuntimeError(f"the block benchmark launched {launches}, "
@@ -1103,7 +1069,7 @@ def separable_bwd_phase(device, card: str, build_s: float,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = dict(S.LAUNCHES)
+    before = separable_runs()
     calls = 0
     worst = 0.0
     failures = []
@@ -1160,7 +1126,7 @@ def separable_bwd_phase(device, card: str, build_s: float,
         f"checked")
 
     # the VJP in f32 against autograd of the ATen block
-    vjp_before = dict(S.LAUNCHES)
+    vjp_before = separable_runs()
     leaves = [v.float().requires_grad_() for v in separable_block_inputs(
         t, cin, cout, batch=BATCH, device=device)]
     x, w_dw, w_pw, a, b = leaves
@@ -1169,7 +1135,8 @@ def separable_bwd_phase(device, card: str, build_s: float,
                                      device=device)
     got = torch.autograd.grad(S.fused_separable_block_vjp(
         x, a, b, w_dw, w_pw, stride, padding), leaves, cts)
-    rose = {v: S.LAUNCHES[v] - vjp_before[v] for v in S.LAUNCHES}
+    after = separable_runs()
+    rose = {v: after[v] - vjp_before[v] for v in after}
     if rose != {"fuse": 0, "fold": 1, "bwd": 1}:
         raise RuntimeError(f"the VJP launched {rose}")
     want = torch.autograd.grad(S.reference_block(
@@ -1188,18 +1155,18 @@ def separable_bwd_phase(device, card: str, build_s: float,
     del leaves, x, w_dw, w_pw, a, b, got, want
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
-    rose = {v: S.LAUNCHES[v] - before[v] for v in S.LAUNCHES}
+    after = separable_runs()
+    rose = {v: after[v] - before[v] for v in after}
     if rose != {"fuse": 0, "fold": 1, "bwd": calls + 1}:
-        raise RuntimeError(f"separable LAUNCHES rose by {rose} in {calls} "
+        raise RuntimeError(f"separable runs rose by {rose} in {calls} "
                            f"backward calls and one VJP")
     if failures:
         raise RuntimeError("separable backward: " + "; ".join(failures))
 
     # the path: the gradient benchmark, with the counts set to 0 just before
-    for variant in S.LAUNCHES:
-        S.LAUNCHES[variant] = 0
+    launch.reset_runs()
     records = benchmark_separable_block_grads(device)
-    launches = dict(S.LAUNCHES)
+    launches = separable_runs()
     per_variant = 1 + SEPARABLE_ITERS * SEPARABLE_RUNS
     # per shape: one forward for y, then vjp_grad (fold + bwd) and bwd
     expected = {"fuse": 0,
@@ -1268,7 +1235,7 @@ def gru_phase(device, card: str, build_s: float, ptxas: list[str]) -> dict:
     the states in f32, written and read back; the products' A operands,
     written for the weights' gradients) are the design's own traffic,
     logged beside it and left out of the bound. The record's launches
-    are filled in by ``[zoo]``'s BiGRU train steps (``gru_runs``)."""
+    are filled in by ``[zoo]``'s BiGRU train steps (``launch.runs``)."""
     from speech_recognition_tpu_torch.export.benchmark import (
         GRU_BATCH, GRU_SHAPES, benchmark_gru,
     )
@@ -1631,13 +1598,13 @@ def dp_rank(rank: int, world: int, init_method: str, backend: str,
     state = trainer.init_state()
     barrier()
     torch.cuda.reset_peak_memory_stats(device)
-    KS.LAUNCHES = K.LAUNCHES = 0
+    launch.reset_runs()
     result = benchmark_train(trainer, state, steps=STEPS, warmup=WARMUP)
     t0 = time.perf_counter()
     conf, val_loss = trainer.evaluate(state, "validation")
     out["eval_s"] = time.perf_counter() - t0
-    out["launches"] = {"decode_augment_sharded": KS.LAUNCHES,
-                       "decode_augment": K.LAUNCHES}
+    # each train step's decode_augment_sharded is one decode+augment run
+    out["launches"] = launch.runs()["decode_augment"]
     out.update(losses=result["losses"], ms_per_step=result["ms_per_step"],
                clips_per_sec=result["clips_per_sec"],
                wall_ms_per_step=result["wall_ms_per_step"],
@@ -1741,8 +1708,7 @@ def dp_phase(card: str):
     steps = STEPS + WARMUP
     expected = (NUM_VAL // BATCH) * BATCH
     for r in rs:
-        if r["launches"] != {"decode_augment_sharded": steps,
-                             "decode_augment": steps}:
+        if r["launches"] != steps:
             raise RuntimeError(f"[dp] rank {r['rank']} launched "
                                f"{r['launches']} in {steps} train steps")
         if len(r["losses"]) != steps or not np.isfinite(r["losses"]).all():
@@ -1774,7 +1740,7 @@ def dp_phase(card: str):
             for r in rs) + f" | {card}")
     log(f"[dp] validation: {conf.sum()} clips in {rs[0]['eval_s']:.2f} s, "
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss "
-        f"{rs[0]['val_loss']:.4f}; launches per rank in the main path "
+        f"{rs[0]['val_loss']:.4f}; decode+augment runs per rank "
         f"{rs[0]['launches']}; phase {time.perf_counter() - phase_t0:.1f} s")
     slowest = max(rs, key=lambda r: r["device_ms"])
     return {
@@ -1782,8 +1748,7 @@ def dp_phase(card: str):
         "route": "cuda",
         "source": "speech_recognition_tpu_torch/csrc/decode_augment.cu",
         "replaces": "speech_recognition_tpu/ops/pallas/sharded.py:22",
-        "launches": sum(r["launches"]["decode_augment_sharded"]
-                        for r in rs),
+        "launches": sum(r["launches"] for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in rs),
         **{k: slowest[k] for k in ("ms", "plain_ms", "device_ms",
                                    "device_ms_warm", "yardstick_ms")},
@@ -1872,7 +1837,7 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
     against its plain version on one of the model's own draws, and the
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
     against the events' step. A model with BiGRUs runs each GRU kernel
-    once a BiGRU and step, launched or replayed (``gru_runs``). Returns
+    once a BiGRU and step, launched or replayed (``launch.runs``). Returns
     the runs of decode+augment in the trainers' steps and those of the
     GRU kernels by model (read before the comparison and the trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
@@ -1884,7 +1849,6 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
         MODEL_REGISTRY, build_model,
     )
     from speech_recognition_tpu_torch.ops.frontend import Frontend
-    from speech_recognition_tpu_torch.train import loop
     from speech_recognition_tpu_torch.train.loop import Trainer
 
     phase_t0 = time.perf_counter()
@@ -1936,12 +1900,13 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
             raise RuntimeError(f"[zoo] {name}: {trainer.compute_dtype}")
         state = trainer.init_state()
         torch.cuda.reset_peak_memory_stats()
-        reset_decode_augment_runs()
-        reset_gru_runs()
+        launch.reset_runs()
         result = benchmark_train(trainer, state, steps=ZOO_STEPS,
                                  warmup=ZOO_WARMUP)
-        launches, replays = decode_augment_runs(), loop.REPLAYS
-        grus = gru_runs()
+        runs = launch.runs()
+        launches = runs["decode_augment"]
+        grus = {"forward": runs["gru_forward"],
+                "backward": runs["gru_backward"]}
         losses = result["losses"]
         if launches != ZOO_STEPS + ZOO_WARMUP:
             raise RuntimeError(f"[zoo] {name}: {launches} decode_augment "
@@ -1970,7 +1935,7 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
             f"(golden); f32 logits card vs CPU max abs err {err:.3g} (tol "
             f"{LOGITS_ATOL}, and {LOGITS_ATOL} of max |logit| {top:.3g}); "
             f"losses {[round(v, 4) for v in losses]}; decode_augment "
-            f"runs {launches} ({replays} in replays of the step's CUDA "
+            f"runs {launches} (launched or in replays of the step's CUDA "
             f"graph; capture error: {trainer.graph_error}), vs plain "
             f"{kernel_err:.3g}; GRU kernel runs {grus}")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
@@ -2085,9 +2050,9 @@ def fit_phase(device, card: str, root) -> int:
         args = C.parse_args(FIT_ARGS + ["--seed", str(seed)]
                             + (["--eval_int8"] if seed == 0 else []))
         t0 = time.perf_counter()
-        reset_decode_augment_runs()
+        launch.reset_runs()
         record, trainer, history = C.calibrate(args, corpus_root=root)
-        seed_launches = decode_augment_runs()
+        seed_launches = launch.runs()["decode_augment"]
         seed_s = time.perf_counter() - t0
         da_err = decode_augment_on_path(
             trainer.dataset, trainer.draw_batch(), f"[fit] seed {seed}")
@@ -2144,15 +2109,12 @@ def stream_phase(card: str) -> int:
     decode+augment launch a step, and holds the kernel against its plain
     version on one more streamed batch, with the bench's own draws.
     Returns the launches."""
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
     from speech_recognition_tpu_torch.tools import bench_streaming
 
     t0 = time.perf_counter()
-    K.LAUNCHES = 0
+    launch.reset_runs()
     out = run_tool(bench_streaming, STREAM_ARGS, "[stream]")
-    launches = K.LAUNCHES
+    launches = launch.runs()["decode_augment"]
     diag, record = out["diagnostics"], out["record"]
     if not diag["losses_finite"] or not record["value"] > 0:
         raise RuntimeError(f"[stream] {record} {diag}")
@@ -2289,10 +2251,10 @@ def train_phase(device, card: str, root) -> int:
                                                weights_only=True)["step"])
                     extra = extra + [best]
                 t0 = time.perf_counter()
-                reset_decode_augment_runs()
+                launch.reset_runs()
                 out[mode] = run_tool(train, common + ["--experiment", mode]
                                      + extra, "[train]", _train_line)
-                launches[mode] = decode_augment_runs()
+                launches[mode] = launch.runs()["decode_augment"]
                 log(f"[train] tools.train {mode}: {TRAIN_EPOCHS} epochs, "
                     f"step {out[mode]['state'].step}, val acc "
                     f"{out[mode]['val_categorical_accuracy']:.4f}, "
@@ -2449,12 +2411,13 @@ def dp_train_phase(card: str, root) -> dict:
     epochs of 2 steps in a working directory of its own. Checks that both
     ranks print the same figures after each epoch (the step, the train
     loss and the validation loss and accuracy, bit for bit), that each
-    rank launched decode+augment once per train step and per streamed BN
-    batch (and ``decode_augment_sharded`` once per bank step), and that
-    rank 0 alone wrote: one jsonl line and one report per epoch, one
+    rank ran decode+augment once per train step (in bank mode through
+    ``decode_augment_sharded``) and per streamed BN batch, and that rank
+    0 alone wrote: one jsonl line and one report per epoch, one
     TensorBoard file, and a best checkpoint that loads. Returns the
-    launches by kernel, summed over the ranks, each launch under one
-    kernel: the bank steps' under ``decode_augment_sharded``."""
+    launches summed over the ranks, the bank steps' under
+    ``decode_augment_sharded``, the streamed ones under
+    ``decode_augment``."""
     import re
     import tempfile
     from pathlib import Path
@@ -2473,13 +2436,11 @@ def dp_train_phase(card: str, root) -> dict:
     common = ["--data_dirs", str(root), "--validation_percentage",
               str(TRAIN_VALIDATION_PCT), *DP_TRAIN_ARGS]
     totals = {"decode_augment": 0, "decode_augment_sharded": 0}
-    for mode, extra, want in (
-            ("bank", [], {"decode_augment": epochs * spe,
-                          "decode_augment_sharded": epochs * spe}),
+    for mode, extra, kernel, want in (
+            ("bank", [], "decode_augment_sharded", epochs * spe),
             ("stream", ["--stream", "--bn_recalibration_batches",
-                        str(DP_TRAIN_BN_BATCHES)],
-             {"decode_augment": epochs * (spe + DP_TRAIN_BN_BATCHES),
-              "decode_augment_sharded": 0})):
+                        str(DP_TRAIN_BN_BATCHES)], "decode_augment",
+             epochs * (spe + DP_TRAIN_BN_BATCHES))):
         with tempfile.TemporaryDirectory(prefix=f"srt_torch_dp_{mode}_") \
                 as td:
             outs, _, secs = torchrun(
@@ -2501,12 +2462,9 @@ def dp_train_phase(card: str, root) -> dict:
                 loss = float(re.search(r" loss=(\S+)", by_rank[0]).group(1))
                 if not np.isfinite(loss):
                     raise RuntimeError(f"[dp-train] {mode}: loss {loss}")
-            launched = {int(r): {"decode_augment": int(a),
-                                 "decode_augment_sharded": int(b)}
-                        for r, a, b in re.findall(
-                            r"\[rank (\d+)/\d+\] final: .* launches: "
-                            r"decode_augment=(\d+) "
-                            r"decode_augment_sharded=(\d+)", out)}
+            launched = {int(r): int(n) for r, n in re.findall(
+                r"\[rank (\d+)/\d+\] final: .* launches: "
+                r"decode_augment=(\d+)", out)}
             if sorted(launched) != list(range(world)) or any(
                     v != want for v in launched.values()):
                 raise RuntimeError(f"[dp-train] {mode}: launches {launched},"
@@ -2531,12 +2489,7 @@ def dp_train_phase(card: str, root) -> dict:
                     f"[dp-train] {mode}: rank 0's files: {len(jsonl)} jsonl "
                     f"lines, {len(reports)} reports, {ckpt_dirs}, {events},"
                     f" checkpoint step {tree['step']}")
-        # the sharded wrapper's launches count in decode_augment's too:
-        # they go under decode_augment_sharded alone, as [dp]'s do
-        for v in launched.values():
-            totals["decode_augment"] += (v["decode_augment"]
-                                         - v["decode_augment_sharded"])
-            totals["decode_augment_sharded"] += v["decode_augment_sharded"]
+        totals[kernel] += sum(launched.values())
         log(f"[dp-train] {mode}: {epochs} epochs of {spe} steps in "
             f"{secs:.1f} s (torchrun, start-up included); every epoch the "
             f"ranks print the same figures: " + " | ".join(
@@ -2866,12 +2819,12 @@ def serving_chain(device, td, root, card: str) -> int:
 
     trainer.draw_batch = counting_draw
     steps = ds.set_size("training") // args.batch_size
-    reset_decode_augment_runs()
+    launch.reset_runs()
     state, history = trainer.fit(
         state, epochs=RETRAIN_EPOCHS,
         bn_recalibration_batches=args.bn_recalibration_batches,
         steps_per_dispatch=8)
-    launches = decode_augment_runs()
+    launches = launch.runs()["decode_augment"]
     expected = RETRAIN_EPOCHS * (steps + args.bn_recalibration_batches)
     drawn = torch.stack(drawn)
     pseudo_rows = int(drawn.sum())
@@ -3031,10 +2984,10 @@ def profile_phase(card: str) -> int:
     steps = int(PROFILE_ARGS[3])
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="srt_torch_profile_") as td:
-        reset_decode_augment_runs()
+        launch.reset_runs()
         summary = run_tool(profile_step, PROFILE_ARGS + ["--trace_dir", td],
                            "[profile]", keep=lambda line: False)
-        launches = decode_augment_runs()
+        launches = launch.runs()["decode_augment"]
     kernels = {n: m for n, m in summary["modules"].items()
                if re.search(DECODE_KERNEL, n)}
     count = sum(m["count"] for m in kernels.values())
@@ -3083,11 +3036,11 @@ def tools_phase(card: str) -> int:
             + ("" if r["fits_pi_budget"] else " (over the Pi budget)")
             for r in rows))
     t0 = time.perf_counter()
-    reset_decode_augment_runs()
+    launch.reset_runs()
     zoo = run_tool(bench_zoo, ["--models", *TOOLS_ZOO_MODELS,
                                *TOOLS_ZOO_ARGS], "[tools]",
                    keep=lambda line: False)
-    launches = decode_augment_runs()
+    launches = launch.runs()["decode_augment"]
     per_model = int(TOOLS_ZOO_ARGS[1]) + int(TOOLS_ZOO_ARGS[3])
     if [r["model"] for r in zoo] != TOOLS_ZOO_MODELS \
             or launches != per_model * len(zoo) \
@@ -3205,7 +3158,7 @@ def main() -> int:
     # 3. kernel against its plain version
     d = edge_case_draws(trainer, ds)
     bg = ds.background.flat
-    before = K.LAUNCHES
+    before = launch.runs()["decode_augment"]
     errs = []
     for index_dtype in (torch.int64, torch.int32):
         args = (ds.wav_bank, bg, d.file_ids.to(index_dtype),
@@ -3219,8 +3172,9 @@ def main() -> int:
                                "non-finite values")
         errs.append(float((got - want).abs().max()))
     max_err = max(errs)
-    if K.LAUNCHES != before + 2:
-        raise RuntimeError(f"LAUNCHES went {before} -> {K.LAUNCHES}")
+    after = launch.runs()["decode_augment"]
+    if after != before + 2:
+        raise RuntimeError(f"decode_augment runs went {before} -> {after}")
     if max_err > KERNEL_ATOL:
         raise RuntimeError(f"kernel vs plain max abs err {max_err} > "
                            f"{KERNEL_ATOL}")
@@ -3277,12 +3231,12 @@ def main() -> int:
     # 6. the slice: 20 bf16 train steps, then one validation sweep
     state = trainer.init_state()
     torch.cuda.reset_peak_memory_stats()
-    reset_decode_augment_runs()
+    launch.reset_runs()
     result = benchmark_train(trainer, state, steps=STEPS, warmup=WARMUP)
     t0 = time.perf_counter()
     conf, val_loss = trainer.evaluate(state, "validation")
     eval_s = time.perf_counter() - t0
-    launches = decode_augment_runs()
+    launches = launch.runs()["decode_augment"]
     losses = result["losses"]
     if launches != STEPS + WARMUP:
         raise RuntimeError(f"{launches} kernel launches in "

@@ -185,10 +185,7 @@ def _measure_in_child() -> None:
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train, traced_train_device_time, train_step_flops,
     )
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
-    from speech_recognition_tpu_torch.train import loop
+    from speech_recognition_tpu_torch.ops.kernels import launch
     from speech_recognition_tpu_torch.train.loop import Trainer
 
     device = require_cuda()
@@ -212,7 +209,7 @@ def _measure_in_child() -> None:
     spd = int(os.environ.get("BENCH_SPD", "800"))
     steps = max(100, spd)
     torch.cuda.reset_peak_memory_stats(device)
-    K.LAUNCHES = loop.REPLAYS = 0
+    launch.reset_runs()
     reps, train_steps = [], 0
     for rep in range(3 if small else 6):
         warmup = 10 if rep == 0 else 5
@@ -267,7 +264,7 @@ def _measure_in_child() -> None:
                             / H100_BF16_PEAK_FLOPS),
         "train_steps": train_steps,
         # its runs: launched, or in a replay of the step's graph
-        "decode_augment_launches": K.LAUNCHES + loop.REPLAYS,
+        "decode_augment_launches": launch.runs()["decode_augment"],
         "device": torch.cuda.get_device_name(device),
     }
     _log(f"diagnostics: {json.dumps(diag)}")

@@ -16,14 +16,13 @@ version, the same rows from the numpy parser.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from speech_recognition_tpu_torch.ops.kernels import build
+from speech_recognition_tpu_torch.ops.kernels.launch import library
 
 INT16_DECODE_SCALE = 32768.0  # decode_wav semantics
 INT16_ENCODE_SCALE = 32767.0
@@ -173,21 +172,17 @@ def decode_batch_int16_numpy(paths: Sequence[str], desired_samples: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build ``csrc/wavio.cc`` (at first use) and load it; raises if the
-    build or the load fails."""
-    lib = ctypes.CDLL(str(build.build("wavio")))
-    lib.wavio_decode_batch.restype = ctypes.c_int
-    lib.wavio_decode_batch.argtypes = [
+def _library():
+    """``csrc/wavio.cc``'s library; raises if the build or the load
+    fails."""
+    return library("wavio", {"wavio_decode_batch": [
         ctypes.POINTER(ctypes.c_char_p),    # paths
         ctypes.c_int,                       # number of files
         ctypes.c_int,                       # desired samples
         ctypes.POINTER(ctypes.c_int16),     # out [n, desired], C order
         ctypes.POINTER(ctypes.c_int32),     # lengths [n]
         ctypes.c_int,                       # threads
-    ]
-    return lib
+    ]})
 
 
 def default_threads() -> int:

@@ -18,12 +18,14 @@ but on a CUDA device: a CPU time is not a device number.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
 
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.ops.kernels.separable_block import (
     fused_separable_block, fused_separable_block_vjp, reference_block,
     separable_block_bwd, separable_block_bwd_plain,
@@ -400,7 +402,8 @@ def _graph_ms(body: Callable[[], Any], generator: torch.Generator,
               iters: int = 20, runs: int = 3) -> float:
     """``body`` captured in a CUDA graph of its own (after two warm-up
     runs on a side stream), then ``time_calls`` of its replays: the
-    card's pace, whatever the host's."""
+    card's pace, whatever the host's. Each replay counts the runs of the
+    kernels its capture launched (``launch.replay``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -409,9 +412,9 @@ def _graph_ms(body: Callable[[], Any], generator: torch.Generator,
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
-    with torch.cuda.graph(graph):
+    with launch.capture(graph):
         body()
-    return time_calls(graph.replay, iters, runs)
+    return time_calls(functools.partial(launch.replay, graph), iters, runs)
 
 
 def benchmark_gru(device: torch.device | str = "cuda"

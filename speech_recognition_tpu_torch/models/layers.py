@@ -31,11 +31,6 @@ from speech_recognition_tpu_torch.ops.kernels.gru import gru_recurrence
 from speech_recognition_tpu_torch.parallel.collectives import all_reduce_sum
 from speech_recognition_tpu_torch.utils.profiling import device_spans, span
 
-# Recurrent time steps run by ``GRU`` in this process, one a direction a
-# step, that run as they are made: those of a CUDA graph's capture run at
-# each replay of its graph instead (as ``decode_augment.LAUNCHES``).
-GRU_TIME_STEPS = 0
-
 # Keras defaults, as in the JAX package. Flax's momentum 0.99 weighs the
 # old running value (torch's convention would call this momentum 0.01).
 BN_MOMENTUM = 0.99
@@ -518,13 +513,9 @@ class GRU(nn.Module):
     def project(self, x: torch.Tensor, generator: torch.Generator = None):
         """The input projections of ``x`` [B, T, C]: [B, T, 3u] (z, r, h),
         and the recurrent masks (3, B, u), or None without recurrent
-        dropout; the masks drawn from ``generator``, input first. Counts
-        the time steps in ``GRU_TIME_STEPS``."""
-        global GRU_TIME_STEPS
+        dropout; the masks drawn from ``generator``, input first."""
         u = self.units
         b, t, c = x.shape
-        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
-            GRU_TIME_STEPS += t
         if self.training and self.dropout > 0.0:
             m = self._masks((3, b, 1, c), self.dropout, generator, x)
             xw = torch.cat([F.linear(x * m[i], self.weight[i * u:(i + 1) * u])

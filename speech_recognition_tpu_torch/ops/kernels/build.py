@@ -1,10 +1,10 @@
-"""Build the port's native sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries.
 
 Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cc`` (host C++,
 the batch WAV decoder) has a plain C interface and is compiled on first
 use, by ``nvcc`` or by the host compiler (``g++``),
 straight into ``speech_recognition_tpu_torch/_build/`` (not tracked by
-git); its wrapper loads it with ``ctypes``. The library's file name
+git); ``launch.library`` loads it with ``ctypes``. The library's file name
 carries a hash of the source, of the shared headers ``csrc/*.cuh`` (for
 a ``.cu``) and of the flags, so an edited source or header is rebuilt and
 a stale library is never loaded. No PyTorch header is included: a build

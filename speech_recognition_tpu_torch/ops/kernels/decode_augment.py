@@ -17,18 +17,11 @@ row with bg_vol 0, and takes the skipped term as +0.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from speech_recognition_tpu_torch.ops.kernels import build
-
-# Kernel launches made by ``decode_augment`` in this process that run as
-# they are made: a launch recorded by a CUDA graph capture runs at each
-# replay of its graph instead (``train/loop.py::REPLAYS`` counts those
-# of the train step).
-LAUNCHES = 0
+from speech_recognition_tpu_torch.ops.kernels.launch import (
+    I64, P, launch, library,
+)
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
 _MAX_GRID_Y = 65535
@@ -96,9 +89,9 @@ def decode_augment(bank: torch.Tensor, bg_flat: torch.Tensor,
     bank [N, T] int16; bg_flat [M] float32; file_ids, shifts, bg_pos [B]
     int32 or int64 (one dtype); fg_vol, bg_vol [B] float32. Shifts follow
     np.roll; ``0 <= bg_pos <= M - T`` and ``0 <= file_ids < N`` (the
-    kernel writes a row outside these bounds as NaN).
+    kernel writes a row outside these bounds as NaN). Its runs count as
+    ``decode_augment`` in ``launch.runs()``.
     """
-    global LAUNCHES
     _check(bank, bg_flat, file_ids, shifts, fg_vol, bg_pos, bg_vol)
     if bank.device.type == "cpu":
         return decode_augment_reference(bank, bg_flat, file_ids, shifts,
@@ -106,34 +99,19 @@ def decode_augment(bank: torch.Tensor, bg_flat: torch.Tensor,
     if bank.device.type != "cuda":
         raise ValueError(f"decode_augment runs on cuda or cpu, not "
                          f"{bank.device}")
-    lib = _library()
     batch, t = file_ids.shape[0], bank.shape[1]
     out = torch.empty((batch, t), dtype=torch.float32, device=bank.device)
-    entry = (lib.decode_augment_i32 if file_ids.dtype == torch.int32
-             else lib.decode_augment_i64)
-    with torch.cuda.device(bank.device):
-        stream = torch.cuda.current_stream(bank.device).cuda_stream
-        err = entry(bank.data_ptr(), bank.shape[0], t, bg_flat.data_ptr(),
-                    bg_flat.shape[0], file_ids.data_ptr(), shifts.data_ptr(),
-                    fg_vol.data_ptr(), bg_pos.data_ptr(), bg_vol.data_ptr(),
-                    out.data_ptr(), batch, stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    if err != 0:
-        msg = lib.decode_augment_error_string(err).decode()
-        raise RuntimeError(f"decode_augment launch failed: {msg} ({err})")
-    if not capturing:
-        LAUNCHES += 1
+    suffix = "i32" if file_ids.dtype == torch.int32 else "i64"
+    lib = library("decode_augment", _ENTRIES,
+                  error="decode_augment_error_string")
+    launch(lib, f"decode_augment_{suffix}", bank.device,
+           bank.data_ptr(), bank.shape[0], t, bg_flat.data_ptr(),
+           bg_flat.shape[0], file_ids.data_ptr(), shifts.data_ptr(),
+           fg_vol.data_ptr(), bg_pos.data_ptr(), bg_vol.data_ptr(),
+           out.data_ptr(), batch, kernel="decode_augment")
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel; one load per process."""
-    lib = ctypes.CDLL(str(build.build("decode_augment")))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for fn in (lib.decode_augment_i32, lib.decode_augment_i64):
-        fn.argtypes = [p, i64, i64, p, i64, p, p, p, p, p, p, i64, p]
-        fn.restype = ctypes.c_int
-    lib.decode_augment_error_string.argtypes = [ctypes.c_int]
-    lib.decode_augment_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGS = [P, I64, I64, P, I64, P, P, P, P, P, P, I64, P]
+# csrc/decode_augment.cu's entries, for int32 and int64 file ids
+_ENTRIES = {"decode_augment_i32": _ARGS, "decode_augment_i64": _ARGS}

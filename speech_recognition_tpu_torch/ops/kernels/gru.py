@@ -28,24 +28,19 @@ input projections' dtype. ``gru_forward`` and ``gru_backward`` launch the
 kernels for CUDA tensors and run their plain versions
 (``gru_forward_plain``, ``gru_backward_plain``: the same steps in PyTorch,
 the backward written out) only for CPU tensors; on a card they never fall
-back. The plain versions also take float64.
+back. Their runs count as ``gru_forward`` and ``gru_backward`` in
+``launch.runs()``. The plain versions also take float64.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from speech_recognition_tpu_torch.ops.kernels import build
-
-# Kernel launches in this process that run as they are made, and those
-# recorded by a CUDA graph capture, which run at each replay of their graph
-# instead (``train/loop.py::REPLAYS`` counts the train step's replays).
-LAUNCHES = {"forward": 0, "backward": 0}
-CAPTURED = {"forward": 0, "backward": 0}
+from speech_recognition_tpu_torch.ops.kernels.launch import (
+    I, I64, P, aligned, launch, library, ptr,
+)
 
 UNITS = (128, 192)                    # csrc/gru_recurrence.cu's builds
 # (operand dtype, input projections' dtype) the kernels take
@@ -197,10 +192,6 @@ def _reverse_bits(reverse: Sequence[bool]) -> int:
     return sum(1 << d for d, r in enumerate(reverse) if r)
 
 
-def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
-    return None if v is None else v.data_ptr()
-
-
 def gru_forward(xws: Sequence[torch.Tensor], wzr: torch.Tensor,
                 wh: torch.Tensor, rm: Optional[torch.Tensor],
                 reverse: Sequence[bool], save: bool = True,
@@ -237,27 +228,11 @@ def gru_forward(xws: Sequence[torch.Tensor], wzr: torch.Tensor,
         ops = torch.empty((dirs, 3, b, steps, u), dtype=wzr.dtype,
                           device=dev)
     xw1 = xws[1] if dirs == 2 else None
-    _launch("gru_forward", wzr.dtype, xws[0].dtype, u, _ptr(xws[0]),
-            _ptr(xw1), _ptr(wzr), _ptr(wh), _ptr(rm), _ptr(last),
-            _ptr(hseq), _ptr(yz), _ptr(yr), _ptr(hh), _ptr(ops), b, steps,
-            dirs, _reverse_bits(reverse), device=dev)
-    _count("forward")
+    _launch("gru_forward", dev, wzr.dtype, xws[0].dtype, u, ptr(xws[0]),
+            ptr(xw1), ptr(wzr), ptr(wh), ptr(rm), ptr(last), ptr(hseq),
+            ptr(yz), ptr(yr), ptr(hh), ptr(ops), b, steps, dirs,
+            _reverse_bits(reverse))
     return last, hseq, (yz, yr, hh, ops) if save else None
-
-
-def _count(kernel: str) -> None:
-    """One launch of ``kernel`` into ``LAUNCHES``, or into ``CAPTURED``
-    while the current stream captures."""
-    capturing = torch.cuda.is_current_stream_capturing()
-    (CAPTURED if capturing else LAUNCHES)[kernel] += 1
-
-
-def _aligned(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``v`` contiguous and 16-byte aligned (a copy where it is not)."""
-    if v is None:
-        return None
-    v = v.contiguous()
-    return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
 def gru_backward(dlast: Optional[torch.Tensor], dhseq: Optional[torch.Tensor],
@@ -279,14 +254,12 @@ def gru_backward(dlast: Optional[torch.Tensor], dhseq: Optional[torch.Tensor],
     wzr_t = wzr.view(dirs, 2, u, u).transpose(-1, -2).reshape(
         dirs, 2 * u, u)
     wh_t = wh.transpose(-1, -2).contiguous()
-    dlast = None if dlast is None else _aligned(dlast.to(io))
-    dhseq = _aligned(dhseq)
+    dlast = None if dlast is None else aligned(dlast.to(io))
+    dhseq = aligned(dhseq)
     dxw = torch.empty((dirs, b, steps, 3 * u), dtype=io, device=dev)
-    _launch("gru_backward", wzr.dtype, io, u, _ptr(wzr_t), _ptr(wh_t),
-            _ptr(rm), _ptr(hseq), _ptr(yz), _ptr(yr), _ptr(hh), _ptr(dlast),
-            _ptr(dhseq), _ptr(dxw), b, steps, dirs, _reverse_bits(reverse),
-            device=dev)
-    _count("backward")
+    _launch("gru_backward", dev, wzr.dtype, io, u, ptr(wzr_t), ptr(wh_t),
+            ptr(rm), ptr(hseq), ptr(yz), ptr(yr), ptr(hh), ptr(dlast),
+            ptr(dhseq), ptr(dxw), b, steps, dirs, _reverse_bits(reverse))
     return dxw
 
 
@@ -349,29 +322,16 @@ def gru_recurrence(xws: Sequence[torch.Tensor], wzr: torch.Tensor,
         xws[0].dtype)
 
 
-def _launch(name: str, op: torch.dtype, io: torch.dtype, *args,
-            device: torch.device) -> None:
-    """Call ``csrc/gru_recurrence.cu``'s entry ``name`` on the current
-    stream of ``device``; raise if the launch was refused."""
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(int(op == torch.bfloat16),
-                                 int(io == torch.bfloat16), *args, stream)
-    if err != 0:
-        msg = lib.gru_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+def _launch(entry: str, device: torch.device, op: torch.dtype,
+            io: torch.dtype, *args) -> None:
+    """Launch ``csrc/gru_recurrence.cu``'s ``entry`` for operand dtype
+    ``op`` and xw dtype ``io``."""
+    lib = library("gru_recurrence", _ENTRIES, error="gru_error_string")
+    launch(lib, entry, device, int(op == torch.bfloat16),
+           int(io == torch.bfloat16), *args, kernel=entry)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels; one load per process."""
-    lib = ctypes.CDLL(str(build.build("gru_recurrence")))
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.gru_forward.argtypes = [i, i, i64] + [p] * 11 + [i64] * 4 + [p]
-    lib.gru_backward.argtypes = [i, i, i64] + [p] * 10 + [i64] * 4 + [p]
-    for fn in (lib.gru_forward, lib.gru_backward):
-        fn.restype = ctypes.c_int
-    lib.gru_error_string.argtypes = [ctypes.c_int]
-    lib.gru_error_string.restype = ctypes.c_char_p
-    return lib
+_ENTRIES = {
+    "gru_forward": [I, I, I64] + [P] * 11 + [I64] * 4 + [P],
+    "gru_backward": [I, I, I64] + [P] * 10 + [I64] * 4 + [P],
+}

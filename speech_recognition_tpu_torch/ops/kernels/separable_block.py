@@ -20,25 +20,22 @@ their plain versions only for CPU tensors; on a card they never fall
 back. ``reference_block`` is what the port's ``DepthwiseConvBlock`` runs
 today (ATen / cuDNN convolutions), the benchmark's baseline. The plain
 versions also take float64 on the CPU (for ``gradcheck``); the wrappers
-take bfloat16 and float32 only.
+take bfloat16 and float32 only. The kernels' runs count in
+``launch.runs()`` as ``separable_block.fold``, ``separable_block.fuse``
+and ``separable_block_bwd``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
-from speech_recognition_tpu_torch.ops.kernels import build
-
-# Kernel launches in this process: ``fused_separable_block`` by variant,
-# "fold" (``fold_weights=True``) and "fuse"; ``separable_block_bwd`` as
-# "bwd".
-LAUNCHES = {"fuse": 0, "fold": 0, "bwd": 0}
+from speech_recognition_tpu_torch.ops.kernels.launch import (
+    I, I64, P, aligned, launch, library, ptr,
+)
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 MAX_FWD_TAPS = 1024           # csrc/separable_block.cu: kMaxTaps
@@ -331,10 +328,10 @@ def fused_separable_block(x: torch.Tensor, w_dw: torch.Tensor,
     # the weights in the compute dtype, built outside the kernel as JAX
     # builds them outside its pallas_call; the kernel reads x, the weights
     # and y 4 to 16 bytes at a time
-    x = _aligned(x)
-    wdw = _aligned(w_dw.reshape(k, cin).to(cdt).contiguous())
-    w = _aligned((fold_weights_of(w_dw, w_pw, cdt) if fold_weights
-                  else w_pw.reshape(cin, cout).to(cdt)).contiguous())
+    x = aligned(x)
+    wdw = aligned(w_dw.reshape(k, cin).to(cdt))
+    w = aligned(fold_weights_of(w_dw, w_pw, cdt) if fold_weights
+                else w_pw.reshape(cin, cout).to(cdt))
     if a is not None:
         a = a.float().contiguous()
         b = b.float().contiguous()
@@ -342,10 +339,11 @@ def fused_separable_block(x: torch.Tensor, w_dw: torch.Tensor,
     # the kernel's entry zeroes the statistics before it adds into them
     stats = (torch.empty((2, cout), dtype=torch.float32, device=x.device)
              if emit_stats else None)
-    _launch("separable_block", x, x.data_ptr(), _ptr(a), _ptr(b),
-            wdw.data_ptr(), w.data_ptr(), y.data_ptr(), _ptr(stats), batch,
-            t, cin, cout, k, stride, pad_lo, t_out, int(fold_weights))
-    LAUNCHES["fold" if fold_weights else "fuse"] += 1
+    _launch("separable_block", x,
+            "separable_block." + ("fold" if fold_weights else "fuse"),
+            x.data_ptr(), ptr(a), ptr(b), wdw.data_ptr(), w.data_ptr(),
+            y.data_ptr(), ptr(stats), batch, t, cin, cout, k, stride,
+            pad_lo, t_out, int(fold_weights))
     if not emit_stats:
         return y
     return y, stats[0], stats[1]
@@ -389,7 +387,7 @@ def separable_block_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     if dy.dtype != cdt:
         dy = dy.float()
     # the kernels read these 4 to 16 bytes at a time
-    x, wdw, wpw, y, dy, ds1, ds2 = (_aligned(v.contiguous()) for v in (
+    x, wdw, wpw, y, dy, ds1, ds2 = (aligned(v) for v in (
         x, w_dw.reshape(k, cin).to(cdt), w_pw.reshape(cin, cout).to(cdt), y,
         dy, ds1.float(), ds2.float()))
     dx = torch.empty_like(x)
@@ -400,13 +398,11 @@ def separable_block_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     # dw_dw, dw_pw, da, db: f32 sums the kernels add into with atomics
     sums = torch.zeros(k * cin + cin * cout + 2 * cin, dtype=torch.float32,
                        device=x.device)
-    _launch("separable_block_bwd", x, x.data_ptr(), _ptr(a), _ptr(b),
-            wdw.data_ptr(), wpw.data_ptr(), y.data_ptr(), dy.data_ptr(),
-            int(dy.dtype != cdt), ds1.data_ptr(), ds2.data_ptr(),
-            dx.data_ptr(), dw.data_ptr(), dyt.data_ptr(), sums.data_ptr(),
-            batch, t, cin,
-            cout, k, stride, pad_lo, t_out)
-    LAUNCHES["bwd"] += 1
+    _launch("separable_block_bwd", x, "separable_block_bwd", x.data_ptr(),
+            ptr(a), ptr(b), wdw.data_ptr(), wpw.data_ptr(), y.data_ptr(),
+            dy.data_ptr(), int(dy.dtype != cdt), ds1.data_ptr(),
+            ds2.data_ptr(), dx.data_ptr(), dw.data_ptr(), dyt.data_ptr(),
+            sums.data_ptr(), batch, t, cin, cout, k, stride, pad_lo, t_out)
     dw_dw, dw_pw, da, db = sums.split([k * cin, cin * cout, cin, cin])
     if a is None:
         da = db = None
@@ -455,48 +451,17 @@ def fused_separable_block_vjp(x: torch.Tensor, a: torch.Tensor,
     return SeparableBlockFunction.apply(x, a, b, w_dw, w_pw, stride, padding)
 
 
-def _aligned(v: torch.Tensor) -> torch.Tensor:
-    """``v``, or a copy of it if its data does not start on a 16-byte
-    boundary (a view at an offset)."""
-    return v if v.data_ptr() % 16 == 0 else v.clone()
-
-
-def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
-    return None if v is None else v.data_ptr()
-
-
-def _launch(name: str, x: torch.Tensor, *args) -> None:
-    """Call ``csrc/<name>.cu``'s entry for x's dtype on the current
-    stream of x's device; raise if the launch was refused."""
-    lib = _library(name)
+def _launch(name: str, x: torch.Tensor, kernel: str, *args) -> None:
+    """Launch ``csrc/<name>.cu``'s entry for x's dtype on x's device."""
+    lib = library(name, {f"{name}_{suffix}": _ENTRY_ARGS[name]
+                         for suffix in ("bf16", "f32")},
+                  error=f"{name}_error_string")
     suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, f"{name}_{suffix}")(*args, stream)
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+    launch(lib, f"{name}_{suffix}", x.device, *args, kernel=kernel)
 
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # the argument types of each source's bf16 and f32 entries
 _ENTRY_ARGS = {
-    "separable_block": [_P] * 7 + [_I64] * 8 + [ctypes.c_int, _P],
-    "separable_block_bwd": [_P] * 7 + [ctypes.c_int] + [_P] * 6 + [_I64] * 8
-    + [_P],
+    "separable_block": [P] * 7 + [I64] * 8 + [I, P],
+    "separable_block_bwd": [P] * 7 + [I] + [P] * 6 + [I64] * 8 + [P],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<name>.cu``; one load per
-    process."""
-    lib = ctypes.CDLL(str(build.build(name)))
-    for suffix in ("bf16", "f32"):
-        fn = getattr(lib, f"{name}_{suffix}")
-        fn.argtypes = _ENTRY_ARGS[name]
-        fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib

@@ -20,10 +20,6 @@ from speech_recognition_tpu_torch.ops.kernels.decode_augment import (
 )
 from speech_recognition_tpu_torch.parallel.mesh import Mesh, shard_batch
 
-# Kernel launches made by ``decode_augment_sharded`` in this process (each
-# also counts in ``decode_augment.LAUNCHES``).
-LAUNCHES = 0
-
 
 def decode_augment_sharded(mesh: Mesh, bank: torch.Tensor,
                            bg_flat: torch.Tensor, file_ids: torch.Tensor,
@@ -38,12 +34,8 @@ def decode_augment_sharded(mesh: Mesh, bank: torch.Tensor,
     rank's rows for CUDA tensors, the plain version for CPU tensors;
     ``B % W != 0`` raises.
     """
-    global LAUNCHES
     rows = shard_batch((file_ids, shifts, fg_vol, bg_pos, bg_vol), mesh)
-    out = decode_augment(bank, bg_flat, *rows)
-    if bank.device.type == "cuda":
-        LAUNCHES += 1
-    return out
+    return decode_augment(bank, bg_flat, *rows)
 
 
 def decode_augment_sharded_reference(mesh: Mesh, bank: torch.Tensor,

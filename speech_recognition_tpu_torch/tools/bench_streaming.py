@@ -134,9 +134,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from speech_recognition_tpu_torch.export.benchmark import (
         traced_device_time,
     )
-    from speech_recognition_tpu_torch.ops.kernels import (
-        decode_augment as K,
-    )
+    from speech_recognition_tpu_torch.ops.kernels import launch
     from speech_recognition_tpu_torch.parallel.distributed import (
         join_from_env,
     )
@@ -162,7 +160,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         state = trainer.init_state()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
-        launches0 = K.LAUNCHES
+        launches0 = launch.runs()["decode_augment"]
         loader = HostPrefetchLoader(
             paths, labels, silence, batch_size=rows.stop - rows.start,
             desired_samples=16000, prefetch=args.prefetch, seed=7,
@@ -186,7 +184,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             batch = next(loader)
         train_steps = args.warmup + args.steps + (
             args.trace_steps if trace else 0)
-        launches = K.LAUNCHES - launches0
+        launches = launch.runs()["decode_augment"] - launches0
         files = [paths[i % len(paths)] for i in range(args.batch_size)]
         t2 = time.perf_counter()
         for _ in range(3):

@@ -273,12 +273,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     acc = accuracy(conf)
     line = f"final: val_loss={val_loss:.4f} val_acc={acc:.4f}"
     if mesh.size > 1:
-        from speech_recognition_tpu_torch.ops.kernels import (
-            decode_augment, sharded,
-        )
+        from speech_recognition_tpu_torch.ops.kernels import launch
+
         line = (f"[rank {mesh.rank}/{mesh.size}] {line} launches: "
-                f"decode_augment={decode_augment.LAUNCHES} "
-                f"decode_augment_sharded={sharded.LAUNCHES}")
+                f"decode_augment={launch.runs()['decode_augment']}")
     print(line, flush=True)
     return {"trainer": trainer, "state": state, "val_loss": val_loss,
             "val_categorical_accuracy": acc}

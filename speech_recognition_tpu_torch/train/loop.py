@@ -81,6 +81,7 @@ from speech_recognition_tpu_torch.ops.augment import (
     augment_batch, draw_augment_params,
 )
 from speech_recognition_tpu_torch.ops.frontend import Frontend
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.ops.kernels.decode_augment import (
     decode_augment,
 )
@@ -98,11 +99,6 @@ from speech_recognition_tpu_torch.train.optim import (
     build_optimizer, l2_kernel_penalty, smooth_cross_entropy,
 )
 from speech_recognition_tpu_torch.utils.profiling import span
-
-# Train steps run in this process as a replay of a captured CUDA graph.
-# Each runs one decode+augment, which ``decode_augment.LAUNCHES`` does
-# not count: it counts the launches that run as they are made.
-REPLAYS = 0
 
 
 @dataclasses.dataclass
@@ -386,7 +382,6 @@ class Trainer:
         and replays it; later calls replay it. A replay writes every
         tensor the eager step writes, each parameter's ``.grad`` among
         them, and advances the generator as the eager step does."""
-        global REPLAYS
         key = self.graph_key(state, pseudo_frequency)
         g = self._graph
         if g is None or g.key != key:
@@ -399,8 +394,7 @@ class Trainer:
                                                  pseudo_frequency):
             return self._bank_step(state, pseudo_frequency)
         with span("train.replay"):
-            g.graph.replay()
-        REPLAYS += 1
+            launch.replay(g.graph)
         if not state.model.training:     # as the eager step leaves it
             state.model.train()
         state.step += 1
@@ -420,7 +414,7 @@ class Trainer:
         before = [gen.get_state() for gen in generators]
         stream, step = torch.cuda.current_stream(self.device), state.step
         try:
-            with span("train.capture"), torch.cuda.graph(graph):
+            with span("train.capture"), launch.capture(graph):
                 outputs = self._bank_step(state, pseudo_frequency)
         except RuntimeError as e:
             # torch leaves the stream and the capture's generators (the

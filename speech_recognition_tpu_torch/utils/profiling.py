@@ -43,6 +43,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from speech_recognition_tpu_torch.ops.kernels.launch import capturing
+
 # Chrome-trace categories of work on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel name -> class of operation, first match wins
@@ -226,7 +228,7 @@ def _begin(name: str) -> _Pair:
 
 def _end(p: _Pair) -> None:
     p.end = _event()
-    if torch.cuda.is_current_stream_capturing():
+    if capturing():
         _baked.append(p)
         return
     root = _open
@@ -241,7 +243,7 @@ def _mark_step(top: span) -> None:
     """At the start of top-level span ``top``: read what has completed,
     then record the marker that a replay inside ``top`` comes after."""
     global _marker
-    if torch.cuda.is_current_stream_capturing():
+    if capturing():
         return
     _poll()
     ev = torch.cuda.Event(enable_timing=True)
@@ -426,10 +428,12 @@ def summarize_trace(log_dir: str, num_steps: Optional[int] = None) -> Dict:
             ext = e.get("args", {}).get("External id")
             if ext is not None:
                 launched_by.setdefault(ext, e["name"])
+    # by start and end only: two kernels on two streams can tie on both
     acts = sorted(
-        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e)
-        for e in events
-        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+        ((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e)
+         for e in events
+         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES),
+        key=lambda a: a[:2])
     busy_us, end = 0.0, float("-inf")
     total = collections.Counter()
     count = collections.Counter()

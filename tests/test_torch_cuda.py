@@ -14,6 +14,7 @@ from speech_recognition_tpu_torch.export.benchmark import (
     separable_block_cotangents, separable_block_inputs,
 )
 from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.ops.kernels import separable_block as S
 
 torch.set_num_threads(1)
@@ -61,10 +62,10 @@ def _inputs(device, batch, num_clips, index_dtype, seed=0):
 @pytest.mark.parametrize("batch", [3, 7, 384])
 def test_kernel_matches_plain_version(cuda, batch, index_dtype):
     args = _inputs(cuda, batch, 64, index_dtype)
-    before = K.LAUNCHES
+    before = launch.runs()
     got = K.decode_augment(*args)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == before + 1
+    assert launch.runs() - before == {"decode_augment": 1}
     want = K.decode_augment_reference(*args)
     assert got.shape == (batch, T) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
@@ -76,11 +77,11 @@ def test_sharded_kernel_rows_make_the_unsharded_batch(cuda, world):
     from speech_recognition_tpu_torch.parallel.mesh import Mesh
 
     args = _inputs(cuda, 384, 64, torch.int64)
-    before = KS.LAUNCHES
+    before = launch.runs()
     rows = [KS.decode_augment_sharded(Mesh(r, world), *args)
             for r in range(world)]
     torch.cuda.synchronize()
-    assert KS.LAUNCHES == before + world
+    assert launch.runs() - before == {"decode_augment": world}
     for r, got in enumerate(rows):
         assert got.shape == (384 // world, T)
         want = KS.decode_augment_sharded_reference(Mesh(r, world), *args)
@@ -111,7 +112,6 @@ def test_train_steps_launch_the_kernel(cuda):
     from speech_recognition_tpu_torch.data.device_bank import (
         synthetic_device_dataset,
     )
-    from speech_recognition_tpu_torch.train import loop
     from speech_recognition_tpu_torch.train.loop import Trainer
 
     ds = synthetic_device_dataset(cuda, num_train=64, num_val=40,
@@ -121,10 +121,12 @@ def test_train_steps_launch_the_kernel(cuda):
                       batch_size=16)
     assert trainer.compute_dtype == "bfloat16"
     state = trainer.init_state()
-    before = K.LAUNCHES + loop.REPLAYS
+    before = launch.runs()
     metrics = trainer.train_many(state, 3)
-    # one run a step: the first launched, the others replays of its graph
-    assert K.LAUNCHES + loop.REPLAYS == before + 3
+    # one run a step: the first launched, the others replays of its graph,
+    # which holds the one launch
+    assert launch.runs() - before == {"decode_augment": 3}
+    assert launch._GRAPHS[trainer._graph.graph] == {"decode_augment": 1}
     assert torch.isfinite(metrics["loss"]).all()
     conf, loss = trainer.evaluate(state)
     assert conf.sum() == 32 and np.isfinite(loss)
@@ -162,10 +164,10 @@ def _draws(device, t, batch, index_dtype, *, seed=1, num_clips=6,
 
 def _assert_kernel_equals_plain(args):
     """One launch, equal to the plain version (torch.equal: +0 == -0)."""
-    before = K.LAUNCHES
+    before = launch.runs()
     got = K.decode_augment(*args)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == before + 1
+    assert launch.runs() - before == {"decode_augment": 1}
     want = K.decode_augment_reference(*args)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got, want), float((got - want).abs().max())
@@ -301,15 +303,15 @@ def test_separable_kernel_matches_plain_version(cuda, batch, shape, dtype,
 
 def test_separable_launches_are_counted_by_variant(cuda):
     ins = _sep_inputs(cuda, 3, SEP_SHAPES[1], torch.bfloat16)
-    before = dict(S.LAUNCHES)
+    before = launch.runs()
     S.fused_separable_block(*ins, stride=2, padding="SAME")
     S.fused_separable_block(*ins, stride=2, padding="SAME",
                             fold_weights=False)
     S.fused_separable_block(*ins, stride=2, padding="SAME",
                             fold_weights=False, emit_stats=False)
     torch.cuda.synchronize()
-    assert S.LAUNCHES == {"fold": before["fold"] + 1,
-                          "fuse": before["fuse"] + 2, "bwd": before["bwd"]}
+    assert launch.runs() - before == {"separable_block.fold": 1,
+                                      "separable_block.fuse": 2}
 
 
 @pytest.mark.parametrize("fold", [False, True])
@@ -426,15 +428,15 @@ def test_separable_bwd_odd_valid_stride2_shape(cuda, prologue):
 
 def test_separable_bwd_launches_are_counted(cuda):
     args, kw = _bwd_inputs(cuda, 3, SEP_SHAPES[1], torch.bfloat16)
-    before = dict(S.LAUNCHES)
+    before = launch.runs()
     S.separable_block_bwd(*args, **kw)
     x, _, _, _, _, w_dw, w_pw, a, b = args
     leaves = [v.clone().requires_grad_() for v in (x, a, b, w_dw, w_pw)]
     y, s1, _ = S.fused_separable_block_vjp(*leaves, **kw)
     torch.autograd.grad(y.float().sum() + s1.sum(), leaves)
     torch.cuda.synchronize()
-    assert S.LAUNCHES == {"fold": before["fold"] + 1,
-                          "fuse": before["fuse"], "bwd": before["bwd"] + 2}
+    assert launch.runs() - before == {"separable_block.fold": 1,
+                                      "separable_block_bwd": 2}
 
 
 @pytest.mark.parametrize("shape", SEP_SHAPES)
@@ -723,8 +725,8 @@ def test_fit_on_card_launches_decode_augment_per_step_and_bn_batch(
         WANTED, build_hard_corpus,
     )
     from speech_recognition_tpu_torch.data.index import build_dataset_index
-    from speech_recognition_tpu_torch.train import loop
     from speech_recognition_tpu_torch.train.loop import Trainer
+    from speech_recognition_tpu_torch.utils import profiling as P
 
     build_hard_corpus(tmp_path, clips_per_word=20, seed=0)
     settings = prepare_model_settings(12, output_representation="spec")
@@ -735,13 +737,15 @@ def test_fit_on_card_launches_decode_augment_per_step_and_bn_batch(
     assert trainer.compute_dtype == "bfloat16"
     assert trainer.frontend.precision == "fastest"
     state = trainer.init_state()
-    K.LAUNCHES = loop.REPLAYS = 0
+    launch.reset_runs()
+    P.clear()
     state, history = trainer.fit(state, epochs=2, bn_recalibration_batches=3,
                                  steps_per_dispatch=4)
     steps = ds.set_size("training") // 32
     # launched, or run by a replay of the train step's graph
-    assert K.LAUNCHES + loop.REPLAYS == 2 * (steps + 3)
-    assert trainer.graph_error is None and loop.REPLAYS > 0
+    assert launch.runs()["decode_augment"] == 2 * (steps + 3)
+    assert trainer.graph_error is None
+    assert any(r.name == "train.replay" for r in P.spans())
     assert state.step == 2 * steps
     for k, v in history.items():
         if k == "confusion":

@@ -45,7 +45,7 @@ from speech_recognition_tpu_torch.data.hard_corpus import (
 from speech_recognition_tpu_torch.data.index import build_dataset_index
 from speech_recognition_tpu_torch.labels import prepare_words_list
 from speech_recognition_tpu_torch.models.convert import from_flax
-from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.train import metrics as M
 from speech_recognition_tpu_torch.train.checkpoint import (
     BestCheckpoint, restore_checkpoint, save_checkpoint,
@@ -285,12 +285,12 @@ def test_fit_on_a_small_hard_corpus(tmp_path):
             seen.append((epoch, set(logs)))
             return st if epoch == 0 else None
 
-    K.LAUNCHES = 0
+    launch.reset_runs()
     state, history = trainer.fit(state, epochs=2, callbacks=[Seen()],
                                  bn_recalibration_batches=2,
                                  steps_per_dispatch=3,
                                  pseudo_schedule=reference_pseudo_schedule)
-    assert K.LAUNCHES == 0          # the CPU runs the plain version
+    assert launch.runs() == {}      # the CPU runs the plain version
     keys = _jax_fit_keys()
     assert keys == {"loss", "categorical_accuracy", "epoch_time_s",
                     "clips_per_sec", "val_loss", "val_categorical_accuracy",

@@ -26,7 +26,7 @@ from speech_recognition_tpu_torch.config import (
 from speech_recognition_tpu_torch.data.device_bank import (
     synthetic_device_dataset,
 )
-from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.train import loop as L
 from speech_recognition_tpu_torch.train.optim import set_learning_rate
 from speech_recognition_tpu_torch.utils import profiling as P
@@ -65,7 +65,8 @@ def _run(device, name, graph, schedule=((STEPS, None),)):
     """Run ``schedule`` on a fresh trainer: through ``train_step`` (the
     graph) or the eager step body. Returns each step's loss (its own
     tensor), its draws, the last gradients, the state's tensors, the
-    generator's state and the captures made."""
+    generator's state, the captures made and the launches the last
+    capture holds for its replays."""
     tr, state = _trainer(device, name)
     seen = []
     draw = tr.draw_batch
@@ -104,7 +105,9 @@ def _run(device, name, graph, schedule=((STEPS, None),)):
         generator=tr.generator.get_state(),
         captures=sum(r.name == "train.capture" for r in P.spans()),
         replays=sum(r.name == "train.replay" for r in P.spans()),
-        graph_error=tr.graph_error)
+        graph_error=tr.graph_error,
+        held=(dict(launch._GRAPHS[tr._graph.graph]) if graph
+              and tr._graph is not None else None))
     torch.cuda.synchronize()
     return out
 
@@ -136,13 +139,14 @@ def _assert_same_steps(eager, other, graph, label):
 @pytest.mark.parametrize("name", MODELS)
 def test_replays_redo_the_eager_steps(cuda, name):
     eager, other = _run(cuda, name, False), _run(cuda, name, False)
-    K.LAUNCHES, L.REPLAYS = 0, 0
+    launch.reset_runs()
     graph = _run(cuda, name, True)
     assert graph["graph_error"] is None
     assert (graph["captures"], graph["replays"]) == (1, STEPS - 1)
-    # one decode+augment a step: the eager one launched, the others in
-    # the replays (the capture's launch is not counted: it runs nothing)
-    assert (K.LAUNCHES, L.REPLAYS) == (1, STEPS - 1)
+    # one decode+augment a step: the eager first step launches it, the
+    # capture holds it (runs nothing) and each replay runs it once
+    assert graph["held"] == {"decode_augment": 1}
+    assert launch.runs()["decode_augment"] == STEPS
     _assert_same_steps(eager, other, graph, name)
     # each step's loss a tensor of its own, still holding its value
     assert len({t.data_ptr() for t in graph["losses"]}) == STEPS

@@ -30,6 +30,7 @@ import torch
 
 from speech_recognition_tpu_torch.models import layers as L
 from speech_recognition_tpu_torch.ops.kernels import gru as G
+from speech_recognition_tpu_torch.ops.kernels import launch
 
 torch.set_num_threads(1)
 
@@ -156,10 +157,10 @@ def test_bf16_operands_under_cpu_autocast_stay_near_float64(train):
 def test_the_loop_is_the_cpu_path():
     m = _module("both", "conv_1d_simple", True).train()
     x = _x("conv_1d_simple")
-    launches = dict(G.LAUNCHES)
+    launches = launch.runs()
     y = m(x, torch.Generator().manual_seed(2))
     assert torch.equal(y, _loop(m, x, torch.Generator().manual_seed(2)))
-    assert G.LAUNCHES == launches
+    assert launch.runs() == launches
 
 
 def _inputs(b=4, t=5, u=8, dirs=2):
@@ -285,8 +286,8 @@ def test_the_kernels_match_their_plain_twin(cuda, shape, batch, dtypes):
 def test_the_kernels_replay_in_a_cuda_graph(cuda, shape):
     """A BiGRU's forward and backward under bf16 autocast, with its
     masks, captured and replayed, against the same step run eagerly
-    from the same generator state; the capture's launches counted in
-    ``CAPTURED``, not in ``LAUNCHES``."""
+    from the same generator state; the capture's launches run nothing
+    and count one run each at each replay (``launch.replay``)."""
     m = _module("both", shape, False, torch.float32).to(cuda).train()
     x = _x(shape, BATCH, torch.float32, cuda)
     gen = torch.Generator(device=cuda)
@@ -306,20 +307,21 @@ def test_the_kernels_replay_in_a_cuda_graph(cuda, shape):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(gen)
-    captured, launches = dict(G.CAPTURED), dict(G.LAUNCHES)
-    with torch.cuda.graph(graph):
+    before = launch.runs()
+    with launch.capture(graph):
         out = body()
-    assert G.LAUNCHES == launches
-    assert {k: G.CAPTURED[k] - captured[k] for k in captured} == {
-        "forward": 1, "backward": 1}
+    assert launch.runs() == before
     gen.manual_seed(11)
     want = [v.clone() for v in body()]
+    eager = launch.runs()
     gen.manual_seed(11)
-    graph.replay()
+    launch.replay(graph)
     torch.cuda.synchronize()
     for a, b in zip(out, want):
         assert _rel(a, b) < 1e-5
-    assert G.LAUNCHES["forward"] - launches["forward"] == 1
+    one_pass = {"gru_forward": 1, "gru_backward": 1}
+    assert eager - before == one_pass
+    assert launch.runs() - eager == one_pass
 
 
 @pytest.mark.cuda
@@ -327,17 +329,16 @@ def test_a_bigru_call_launches_once_a_pass(cuda):
     m = _module("both", "xception", False, torch.float32).to(cuda).train()
     x = _x("xception", 16, torch.float32, cuda)
     gen = torch.Generator(device=cuda)
-    before = dict(G.LAUNCHES)
+    before = launch.runs()
     with torch.autocast("cuda", dtype=torch.bfloat16):
         y = m(x, gen)
     y.float().sum().backward()
     torch.cuda.synchronize()
-    assert {k: G.LAUNCHES[k] - before[k] for k in before} == {
-        "forward": 1, "backward": 1}
-    before = dict(G.LAUNCHES)
+    assert launch.runs() - before == {"gru_forward": 1, "gru_backward": 1}
+    before = launch.runs()
     with torch.no_grad():
         m.directions[1](x, gen)
-    assert G.LAUNCHES["forward"] - before["forward"] == 1
+    assert launch.runs() - before == {"gru_forward": 1}
 
 
 @pytest.mark.cuda

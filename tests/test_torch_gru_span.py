@@ -10,8 +10,6 @@ On the CPU:
 - the pass-through that marks the backward (``on_backward``) leaves the
   gradients bit-identical and calls back at the output's gradient first
   and at the input's last;
-- ``GRU_TIME_STEPS`` counts 50 steps a direction a forward at the
-  cell's shapes;
 - the bookkeeping of the readings, on stand-in events with a device
   clock of the test's: an eager pair is read once its end has completed,
   a captured pair at each replay is put down to the step whose marker it
@@ -45,10 +43,10 @@ def _bigru(seed=0):
     return gru
 
 
-def _x(b=2, requires_grad=True):
+def _x(b=2):
     x = torch.randn(b, 384, 50, dtype=torch.float64,
                     generator=torch.Generator().manual_seed(1))
-    return x.requires_grad_(requires_grad)
+    return x.requires_grad_()
 
 
 def _grads(gru, x, y):
@@ -94,14 +92,6 @@ def test_the_backward_marks_pass_the_gradient_and_call_back_in_order():
     want = _grads(gru, x2, _by_hand(gru, x2,
                                     torch.Generator().manual_seed(2)))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-
-
-def test_the_gru_counts_its_time_steps():
-    gru = _bigru()
-    n = ML.GRU_TIME_STEPS
-    with torch.no_grad():
-        gru.eval()(_x(requires_grad=False))
-    assert ML.GRU_TIME_STEPS - n == 2 * 50
 
 
 class _Device:

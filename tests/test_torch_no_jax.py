@@ -40,6 +40,7 @@ new = {"bench", "labels", "data.wav", "data.index", "data.hard_corpus",
        "tools.make_submission", "tools.create_tta_set",
        "tools.pseudo_labels", "tools.evaluate", "tools.bench_infer",
        "models.zoo", "models.layers", "models.convert", "ops.kernels.build",
+       "ops.kernels.launch",
        "models.keras_order", "models.keras_order_manifest",
        "export.keras_import", "export.aot", "data.prefetch",
        "utils.tb_events", "tools.import_checkpoint", "tools.freeze",
@@ -53,6 +54,7 @@ from speech_recognition_tpu_torch.config import prepare_model_settings
 from speech_recognition_tpu_torch.data.device_bank import (
     synthetic_device_dataset)
 from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.train.loop import Trainer
 
 plain_calls = []
@@ -69,7 +71,8 @@ trainer = Trainer("conv_1d_time_sliced_with_attention",
 state = trainer.init_state()
 loss = trainer.train_step(state)["loss"]
 assert torch.isfinite(loss), loss
-assert plain_calls == [1] and K.LAUNCHES == 0, (plain_calls, K.LAUNCHES)
+assert plain_calls == [1] and launch.runs() == {}, (plain_calls,
+                                                   launch.runs())
 
 # the native WAV decoder and a zoo model of the raw-waveform slice
 import os, tempfile
@@ -81,7 +84,7 @@ with tempfile.TemporaryDirectory() as td:
     wav.save_wav_file(path, np.linspace(-0.5, 0.5, 100), 16000)
     rows = wav.decode_batch_int16([path], 16000)
     assert (rows == wav.decode_batch_int16_numpy([path], 16000)).all()
-    assert wav._library.cache_info().currsize == 1
+    assert list(launch._LOADED) == ["wavio"], launch._LOADED
 model, _ = build_model("conv_1d_top_down", num_classes=12)
 assert model.eval()(torch.zeros(2, 16000)).shape == (2, 12)
 loaded = [n for n in sys.modules if sys.modules[n] is not None

@@ -67,6 +67,7 @@ from speech_recognition_tpu_torch.models.convert import from_flax
 from speech_recognition_tpu_torch.models.layers import (
     BatchNorm, Dropout, use_mesh,
 )
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.ops.kernels import sharded as KS
 from speech_recognition_tpu_torch.ops.kernels.decode_augment import (
     decode_augment,
@@ -430,10 +431,10 @@ def test_decode_augment_sharded_matches_jax(jax_sharded, world):
 
 @pytest.mark.parametrize("world", [2, 8])
 def test_decode_augment_sharded_equals_unsharded(world):
-    before = KS.LAUNCHES
+    before = launch.runs()
     rows, args = _port_sharded(world)
     plain, _ = _port_sharded(world, KS.decode_augment_sharded_reference)
-    assert KS.LAUNCHES == before        # CPU tensors: the plain version
+    assert launch.runs() == before      # CPU tensors: the plain version
     whole = decode_augment(*args)
     assert torch.equal(torch.cat(rows), whole)
     assert torch.equal(torch.cat(plain), whole)

@@ -31,6 +31,7 @@ from speech_recognition_tpu_torch.export.benchmark import (
     SEPARABLE_SHAPES, benchmark_separable_blocks, separable_block_inputs,
 )
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.ops.kernels import separable_block as K
 
 torch.set_num_threads(1)
@@ -228,11 +229,11 @@ def test_out_len_agrees_with_same_pad_amount_and_jax():
 
 
 def test_cpu_path_does_not_count_launches():
-    before = dict(K.LAUNCHES)
+    before = launch.runs()
     _port(*_inputs(11, 32, 32), stride=2, padding="SAME")
     _port(*_inputs(11, 32, 32), stride=2, padding="SAME",
           fold_weights=False)
-    assert K.LAUNCHES == before
+    assert launch.runs() == before
 
 
 def _torch_inputs(**over):

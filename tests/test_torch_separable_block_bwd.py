@@ -37,6 +37,7 @@ from speech_recognition_tpu.ops.pallas.experiments import (
 from speech_recognition_tpu_torch.export.benchmark import (
     SEPARABLE_SHAPES, benchmark_separable_block_grads,
 )
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.ops.kernels import separable_block as K
 
 torch.set_num_threads(1)
@@ -450,14 +451,14 @@ def test_bwd_wrapper_on_cpu_is_the_plain_version():
     args = _bwd_args()
     dy = torch.cat([args["dy"], args["dy"]], 2)[:, :, ::2]
     assert not dy.is_contiguous()
-    before = dict(K.LAUNCHES)
+    before = launch.runs()
     got = K.separable_block_bwd(**dict(args, dy=dy), stride=1,
                                 padding="VALID")
     want = K.separable_block_bwd_plain(**dict(args, dy=dy.contiguous()),
                                        stride=1, padding="VALID")
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert K.LAUNCHES == before
+    assert launch.runs() == before
 
 
 def test_bwd_takes_an_f32_dy_with_bf16_compute_unrounded():

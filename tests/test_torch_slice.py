@@ -42,7 +42,7 @@ from speech_recognition_tpu_torch.data.device_bank import (
 from speech_recognition_tpu_torch.export.benchmark import benchmark_train
 from speech_recognition_tpu_torch.models.convert import from_flax
 from speech_recognition_tpu_torch.models.layers import Dropout
-from speech_recognition_tpu_torch.ops.kernels import decode_augment as K
+from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.train import metrics as M
 from speech_recognition_tpu_torch.train import optim as O
 from speech_recognition_tpu_torch.train.loop import Draws, Trainer
@@ -309,9 +309,9 @@ def cpu_trainer():
 def test_cpu_train_steps_use_the_plain_version(cpu_trainer):
     assert cpu_trainer.compute_dtype == "float32"
     state = cpu_trainer.init_state()
-    before = K.LAUNCHES
+    before = launch.runs()
     metrics = cpu_trainer.train_many(state, 2)
-    assert K.LAUNCHES == before
+    assert launch.runs() == before
     assert metrics["loss"].shape == (2,)
     assert torch.isfinite(metrics["loss"]).all()
     assert state.step == 2

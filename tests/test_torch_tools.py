@@ -154,6 +154,18 @@ def test_summarize_trace_totals(tmp_path):
     assert s["detail"][1]["source"] == "aten::add"
 
 
+def test_summarize_trace_with_kernels_that_tie(tmp_path):
+    """Two kernels on two streams with the same start and duration."""
+    trace = _torch_trace()
+    tie = dict(trace["traceEvents"][3], tid=8)
+    trace["traceEvents"].append(tie)
+    _write(tmp_path / "h.1.1.pt.trace.json.gz", trace)
+    s = P.summarize_trace(str(tmp_path), num_steps=2)
+    assert s["activities"] == 6
+    assert s["device_busy_ms"] == pytest.approx(47e-3)
+    assert s["modules"]["ampere_sgemm_128x64_nn"]["count"] == 3
+
+
 def test_summarize_trace_takes_the_newest_file(tmp_path):
     old = _torch_trace()
     old["traceEvents"] = old["traceEvents"][:4]

@@ -17,7 +17,7 @@ import pytest
 import synth_corpus
 from speech_recognition_tpu.data import wav as JW
 from speech_recognition_tpu_torch.data import wav as W
-from speech_recognition_tpu_torch.ops.kernels import build
+from speech_recognition_tpu_torch.ops.kernels import build, launch
 
 
 def _wav_bytes(n=64, channels=1, seed=0, extra_pcm=b""):
@@ -179,11 +179,11 @@ def test_the_batch_goes_through_the_library(tmp_path, monkeypatch):
 @pytest.fixture
 def no_library(tmp_path, monkeypatch):
     """No build of the decoder at hand: the builder writes to an empty
-    directory, and the loaded library is forgotten before and after."""
+    directory, and the libraries loaded so far are set aside until the
+    test ends."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
-    W._library.cache_clear()
-    yield tmp_path
-    W._library.cache_clear()
+    monkeypatch.setattr(launch, "_LOADED", {})
+    return tmp_path
 
 
 @pytest.mark.parametrize("compiler", ["missing", "failing"])
