@@ -65,6 +65,18 @@ with the host compiler at its first use) and drives these paths:
   ``benchmark_gru``: the layer's train forward and backward through the
   kernels and through the loop over time, each kernel alone and the
   Predictor's f32 forward, against the kernels' bound;
+- train-mode BatchNorm (``[bn]``): holds its four kernels
+  (``ops/kernels/batchnorm.py``) against their plain twin at every
+  BatchNorm input of the benchmark's three models (the flagship,
+  ``steffeNet``, ``xception_with_attention``) at batch 384 in bf16, then
+  prints, for each model, the device ms of one step's BatchNorms forward
+  and backward through each kernel, beside the bytes the function has to
+  move (10 B an element) and the kernels' two-pass design (16 B), the
+  plain twin's, ATen ``F.batch_norm``'s and the layer's before the
+  kernels (``var_mean`` of an f32 copy, then ``F.batch_norm``); ``[slice]`` and
+  ``[zoo]`` check that every train step, launched or replayed, runs each
+  kernel once a BatchNorm of the model (12 for the flagship, 32 for
+  ``steffeNet``, 27 for ``xception_with_attention``);
 - data-parallel training (``[dp]``): two ranks, spawned processes joined
   by NCCL when each has a card of its own and by gloo when they share
   one. Each rank builds and replicates the full-corpus bank, holds
@@ -208,7 +220,17 @@ DEVICE_TRACES = 3
 L2_FLUSH_BYTES = 64 << 20
 DECODE_KERNEL = r"decode_augment_kernel"
 KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd",
-                  "gru_recurrence")
+                  "gru_recurrence", "batchnorm")
+# the [bn] phase: the benchmark's three models (their BatchNorm inputs at
+# batch 384), the kernels' names, the traced calls a reading averages.
+# Kernels and twin sum in f32 in other orders, over up to 153,216 terms
+# a channel: each sum within about sqrt(N) u = 2.3e-5 of its terms'
+# magnitudes, which for these inputs (means of 0.5 at a spread of 2)
+# stay within a few times the largest sum
+BN_MODELS = (MODEL, "steffeNet", "xception_with_attention")
+BN_KERNELS = ("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce", "bn_bw_dx")
+BN_ITERS = 5
+BN_STATS_RTOL = 1e-4
 # GRU recurrence, kernels against their plain twin: the largest gap over
 # the largest value. bf16 operands: a sum in another order may round one
 # operand the other way, and 50 steps carry it on.
@@ -1309,6 +1331,172 @@ def gru_phase(device, card: str, build_s: float, ptxas: list[str]) -> dict:
     }
 
 
+def bn_shapes(model_name: str) -> list:
+    """The (C, T) of each train-mode BatchNorm input of ``model_name``, in
+    the forward's order (one CPU pass at batch 2 on raw waveforms)."""
+    from speech_recognition_tpu_torch.models.layers import BatchNorm
+    from speech_recognition_tpu_torch.models.zoo import build_model
+
+    model, _ = build_model(model_name, num_classes=12)
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_hook(lambda m, i, o: shapes.append(
+                (i[0].shape[1], i[0][0, 0].numel())))
+    with torch.no_grad():
+        model.train()(torch.randn(2, T) * 0.1, torch.Generator())
+    return shapes
+
+
+def device_ms_by_kernel(fn, iters: int = BN_ITERS) -> dict:
+    """Device ms of each kernel name, a call of ``fn`` on average, in a
+    ``torch.profiler`` trace of ``iters`` calls after one untimed."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == cuda and not e.is_user_annotation:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / iters / 1e3
+    return out
+
+
+def bn_phase(device, card: str, ptxas: list[str]) -> dict:
+    """The [bn] phase: train-mode BatchNorm's kernels (``ops/kernels/
+    batchnorm.py``) at every BatchNorm input of the benchmark's three
+    models, batch 384, bf16 (the train step's): the kernels against
+    their plain twin at each distinct shape (y and dx within a bf16 step
+    of their largest value, the statistics and the weights' gradients
+    within ``BN_STATS_RTOL`` of theirs), then, for each model, the device
+    ms of one step's BatchNorms forward and backward (each layer once,
+    the backward in reverse order) through the four kernels, through
+    the plain twin, through ATen's ``F.batch_norm`` and through the
+    layer before the kernels (``var_mean`` of an f32 copy, then
+    ``F.batch_norm``),
+    beside the bytes the function has to move (x read and y written
+    forward; x and dy read and dx written backward: 10 B an element in
+    bf16) and the 16 B of the kernels' two-pass design, over 3.35 TB/s.
+    The record's launches are filled in by ``[slice]`` and ``[zoo]``."""
+    import torch.nn.functional as F
+
+    from speech_recognition_tpu_torch.ops.kernels import batchnorm as BN
+
+    for line in ptxas:
+        log(f"[bn] ptxas -v {line}")
+    eps = 1e-3
+    models, inputs, worst = {}, {}, 0.0
+    for name in BN_MODELS:
+        models[name] = bn_shapes(name)
+        for ct in models[name]:
+            if ct in inputs:
+                continue
+            g = torch.Generator().manual_seed(len(inputs))
+            shape = (BATCH, ct[0], ct[1])
+            x = (torch.randn(shape, generator=g) * 2 + 0.5).to(
+                device, torch.bfloat16)
+            dy = torch.randn(shape, generator=g).to(device, torch.bfloat16)
+            w = (1 + 0.2 * torch.randn(ct[0], generator=g)).to(device)
+            b = (0.1 * torch.randn(ct[0], generator=g)).to(device)
+            inputs[ct] = (x, w, b, dy)
+            got = BN.bn_forward(x, w, b, eps)
+            want = BN.bn_forward_plain(x, w, b, eps)
+            gotb = BN.bn_backward(dy, x, w, got[1], got[3])
+            wantb = BN.bn_backward_plain(dy, x, w, want[1], want[3])
+            torch.cuda.synchronize()
+            rel = lambda a, c: float((a.float() - c.float()).abs().max()
+                                     / c.float().abs().max())
+            gaps = {"y": rel(got[0], want[0]), "dx": rel(gotb[0], wantb[0])}
+            stats = {"mean": rel(got[1], want[1]), "var": rel(got[2], want[2]),
+                     "dweight": rel(gotb[1], wantb[1]),
+                     "dbias": rel(gotb[2], wantb[2])}
+            if max(gaps.values()) > 2.0 ** -7 \
+                    or max(stats.values()) > BN_STATS_RTOL:
+                raise RuntimeError(f"[bn] {shape}: kernels against the "
+                                   f"plain twin {gaps} {stats}")
+            worst = max(worst, *gaps.values())
+    log(f"[bn] kernels against the plain twin at {len(inputs)} shapes, "
+        f"batch {BATCH}, bf16: largest gap over largest value {worst:.3g} "
+        f"in y and dx (tol 2^-7), statistics and weight gradients within "
+        f"{BN_STATS_RTOL} | {card}")
+
+    def kernels(shapes):
+        def run():
+            saved = [BN.bn_forward(*inputs[ct][:3], eps) for ct in shapes]
+            for ct, (_, mean, _, invstd) in zip(shapes[::-1], saved[::-1]):
+                x, w, _, dy = inputs[ct]
+                BN.bn_backward(dy, x, w, mean, invstd)
+        return run
+
+    def plain(shapes):
+        def run():
+            saved = [BN.bn_forward_plain(*inputs[ct][:3], eps)
+                     for ct in shapes]
+            for ct, (_, mean, _, invstd) in zip(shapes[::-1], saved[::-1]):
+                x, w, _, dy = inputs[ct]
+                BN.bn_backward_plain(dy, x, w, mean, invstd)
+        return run
+
+    def aten(shapes, with_var_mean):
+        def run():
+            ys = []
+            for ct in shapes:
+                x, w, b, _ = inputs[ct]
+                x = x.detach().requires_grad_(True)
+                if with_var_mean:
+                    with torch.no_grad():
+                        torch.var_mean(x.float(), dim=(0, 2), correction=0)
+                ys.append(F.batch_norm(x, None, None, w, b, training=True,
+                                       eps=eps))
+            for ct, y in zip(shapes[::-1], ys[::-1]):
+                y.backward(inputs[ct][3])
+        return run
+
+    records = {}
+    for name, shapes in models.items():
+        elements = sum(BATCH * c * t for c, t in shapes)
+        k = device_ms_by_kernel(kernels(shapes))
+        by_kernel = {n: sum(v for e, v in k.items() if n in e)
+                     for n in BN_KERNELS}
+        ms = sum(by_kernel.values())
+        plain_ms = sum(device_ms_by_kernel(plain(shapes)).values())
+        aten_ms = sum(device_ms_by_kernel(aten(shapes, False)).values())
+        before_ms = sum(device_ms_by_kernel(aten(shapes, True)).values())
+        b10, b16 = (1e3 * n * elements / HBM_BYTES_PER_S for n in (10, 16))
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "aten_ms": aten_ms,
+                         "before_ms": before_ms, "bound_ms": b10}
+        log(f"[bn] {name}: {len(shapes)} BatchNorms, {elements:,} elements "
+            f"a step; kernels {ms:.4f} ms ("
+            + ", ".join(f"{n} {v:.4f}" for n, v in by_kernel.items())
+            + f"); bound {b10:.4f} ms at 10 B an element ({100 * b10 / ms:.1f}"
+            f" %), {b16:.4f} ms at 16 B ({100 * b16 / ms:.1f} %); plain twin "
+            f"{plain_ms:.4f} ms; ATen F.batch_norm forward and backward "
+            f"{aten_ms:.4f} ms; the layer before the kernels (var_mean of an "
+            f"f32 copy, then F.batch_norm) {before_ms:.4f} ms; device ms a "
+            f"step, "
+            f"mean of {BN_ITERS} | {card}")
+    main = records[MODEL]
+    return {
+        "name": "batchnorm",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/batchnorm.cu",
+        "replaces": None,
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["aten_ms"],
+    }
+
+
 def edge_case_draws(trainer, ds, starts=(0,)):
     """A training batch's draws with the kernel's edge cases written in
     from each row of ``starts``: zero and most-negative shifts, silence
@@ -1822,7 +2010,7 @@ def _to(x, device):
     return x.to(device)
 
 
-def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
+def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
     """The [zoo] phase, on [slice]'s full-corpus bank ``ds``: for each of
     the 23 models of ``ZOO_PARAMS``, at its golden's geometry (98 frames;
     60 mel features, 40 for ``ZOO_MEL_40``; 257 bins), its parameter
@@ -1837,14 +2025,16 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
     against its plain version on one of the model's own draws, and the
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
     against the events' step. A model with BiGRUs runs each GRU kernel
-    once a BiGRU and step, launched or replayed (``launch.runs``). Returns
-    the runs of decode+augment in the trainers' steps and those of the
-    GRU kernels by model (read before the comparison and the trace)."""
+    once a BiGRU and step, and each BatchNorm kernel once a BatchNorm
+    and step, launched or replayed (``launch.runs``). Returns the runs of
+    decode+augment in the trainers' steps, those of the GRU kernels by
+    model and those of the BatchNorm kernels by model (read before the
+    comparison and the trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train, traced_train_device_time,
     )
-    from speech_recognition_tpu_torch.models.layers import BiGRU
+    from speech_recognition_tpu_torch.models.layers import BatchNorm, BiGRU
     from speech_recognition_tpu_torch.models.zoo import (
         MODEL_REGISTRY, build_model,
     )
@@ -1857,7 +2047,7 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
     if missing:
         raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
     clips = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
-    total, gru_total = 0, {}
+    total, gru_total, bn_total = 0, {}, {}
     for name, golden in ZOO_PARAMS.items():
         t0 = time.perf_counter()
         s = dataclasses.replace(settings, num_log_mel_features=(
@@ -1920,6 +2110,13 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
                                f"{bigrus} BiGRU(s)")
         if bigrus:
             gru_total[name] = sum(grus.values())
+        bns = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+        bn = {k: runs[k] for k in BN_KERNELS}
+        if bn != dict.fromkeys(BN_KERNELS, (ZOO_STEPS + ZOO_WARMUP) * bns):
+            raise RuntimeError(f"[zoo] {name}: BatchNorm kernel runs {bn} in "
+                               f"{ZOO_STEPS + ZOO_WARMUP} train steps of "
+                               f"{bns} BatchNorm(s)")
+        bn_total[name] = sum(bn.values())
         if trainer.graph_error is not None:
             eager.append(name)
         if len(losses) != ZOO_STEPS + ZOO_WARMUP \
@@ -1937,7 +2134,8 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
             f"losses {[round(v, 4) for v in losses]}; decode_augment "
             f"runs {launches} (launched or in replays of the step's CUDA "
             f"graph; capture error: {trainer.graph_error}), vs plain "
-            f"{kernel_err:.3g}; GRU kernel runs {grus}")
+            f"{kernel_err:.3g}; GRU kernel runs {grus}; BatchNorm kernel "
+            f"runs {bn[BN_KERNELS[0]]} each ({bns} BatchNorms a step)")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
             f"{result['ms_per_step']:.3f} ms/step, "
             f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
@@ -1955,10 +2153,11 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict]:
         del trainer, state
         torch.cuda.empty_cache()
     log(f"[zoo] phase {time.perf_counter() - phase_t0:.1f} s, "
-        f"decode_augment runs {total}; GRU kernel runs {gru_total}; models "
+        f"decode_augment runs {total}; GRU kernel runs {gru_total}; "
+        f"BatchNorm kernel runs {bn_total}; models "
         f"whose capture of the train step failed, their steps eager: "
         f"{eager or 'none'}")
-    return total, gru_total
+    return total, gru_total, bn_total
 
 
 def hold_decode_augment(bank, bg_flat, d, label: str) -> float:
@@ -3109,6 +3308,7 @@ def main() -> int:
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train,
     )
+    from speech_recognition_tpu_torch.models.layers import BatchNorm
     from speech_recognition_tpu_torch.models.zoo import build_model
     from speech_recognition_tpu_torch.ops.kernels import (
         decode_augment as K,
@@ -3200,6 +3400,8 @@ def main() -> int:
     gru_kernel = gru_phase(device, card, builds["gru_recurrence"][1],
                            ptxas["gru_recurrence"])
     separable_kernels.append(gru_kernel)
+    bn_kernel = bn_phase(device, card, ptxas["batchnorm"])
+    separable_kernels.append(bn_kernel)
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -3236,11 +3438,18 @@ def main() -> int:
     t0 = time.perf_counter()
     conf, val_loss = trainer.evaluate(state, "validation")
     eval_s = time.perf_counter() - t0
-    launches = launch.runs()["decode_augment"]
+    runs = launch.runs()
+    launches = runs["decode_augment"]
+    bn_slice = {k: runs[k] for k in BN_KERNELS}
     losses = result["losses"]
     if launches != STEPS + WARMUP:
         raise RuntimeError(f"{launches} kernel launches in "
                            f"{STEPS + WARMUP} train steps")
+    bns = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    if bn_slice != dict.fromkeys(BN_KERNELS, (STEPS + WARMUP) * bns):
+        raise RuntimeError(f"BatchNorm kernel runs {bn_slice} in "
+                           f"{STEPS + WARMUP} train steps of {bns} "
+                           f"BatchNorms")
     if len(losses) != STEPS + WARMUP or not np.isfinite(losses).all():
         raise RuntimeError(f"losses: {losses}")
     expected = (NUM_VAL // BATCH) * BATCH
@@ -3255,15 +3464,19 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
     log(f"[slice] validation: {conf.sum()} clips in {eval_s:.2f} s, "
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss {val_loss:.4f}; "
-        f"kernel launches in the main path: {launches}")
+        f"kernel launches in the main path: {launches}; BatchNorm kernel "
+        f"runs {bn_slice} ({bns} BatchNorms a step, launched or replayed)")
 
     # 7. the other 23 zoo models on the same bank, each with the counts
     # set to 0 just before its steps
     del trainer, state
     torch.cuda.empty_cache()
-    zoo_launches, gru_zoo = zoo_phase(device, card, ds, settings)
+    zoo_launches, gru_zoo, bn_zoo = zoo_phase(device, card, ds, settings)
     gru_kernel["launches_by_path"] = {"zoo": sum(gru_zoo.values())}
     gru_kernel["launches"] = sum(gru_zoo.values())
+    bn_kernel["launches_by_path"] = {"slice": sum(bn_slice.values()),
+                                     "zoo": sum(bn_zoo.values())}
+    bn_kernel["launches"] = sum(bn_kernel["launches_by_path"].values())
 
     # 8. data-parallel training, in processes of their own
     del ds, d, bg, args

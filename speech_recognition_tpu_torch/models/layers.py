@@ -27,7 +27,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+from speech_recognition_tpu_torch.ops.kernels.batchnorm import (
+    KERNEL_DTYPES as BN_KERNEL_DTYPES, batch_norm_train,
+)
 from speech_recognition_tpu_torch.ops.kernels.gru import gru_recurrence
+from speech_recognition_tpu_torch.ops.kernels.launch import aligned
 from speech_recognition_tpu_torch.parallel.collectives import all_reduce_sum
 from speech_recognition_tpu_torch.utils.profiling import device_spans, span
 
@@ -166,6 +170,12 @@ class BatchNorm(nn.Module):
     flax does (torch's own BatchNorm folds in the unbiased variance).
     Statistics are taken in at least float32 whatever the activation dtype.
 
+    On one rank, a CUDA activation in a dtype the kernels take (float32,
+    bfloat16, float16; float32 weight) goes through the BatchNorm kernels
+    (``ops/kernels/batchnorm.py``), which take the statistics once and
+    serve both the normalisation and the running statistics; any other
+    (the CPU, float64) through ``torch.var_mean`` and ``F.batch_norm``.
+
     With a ``mesh`` of more than one rank (``use_mesh``) the statistics are
     those of the global batch, as the JAX package's SPMD step takes them:
     the per-channel sum and the count are all-reduced to the global mean,
@@ -202,6 +212,12 @@ class BatchNorm(nn.Module):
                                 eps=self.eps)
         if self.mesh is not None and self.mesh.size > 1:
             return self._global_batch_forward(x)
+        if (x.device.type == "cuda" and x.dtype in BN_KERNEL_DTYPES
+                and self.weight.dtype == torch.float32):
+            y, mean, var = batch_norm_train(aligned(x), self.weight,
+                                            self.bias, self.eps)
+            self._update_running(mean, var)
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(at_least_float32(x),
                                        dim=_non_channel_dims(x),

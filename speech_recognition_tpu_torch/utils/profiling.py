@@ -53,7 +53,7 @@ OP_CLASSES = (
     ("separable_block", re.compile(r"separable|ddw_dx|dwpw", re.I)),
     ("convolution", re.compile(r"conv|cudnn|implicit|winograd|fft", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|xmma|cublas|sm\d+_", re.I)),
-    ("normalization", re.compile(r"norm|welford", re.I)),
+    ("normalization", re.compile(r"norm|welford|bn_fw|bn_bw", re.I)),
     ("reduction", re.compile(r"reduce", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
 )

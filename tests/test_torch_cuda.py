@@ -123,10 +123,18 @@ def test_train_steps_launch_the_kernel(cuda):
     state = trainer.init_state()
     before = launch.runs()
     metrics = trainer.train_many(state, 3)
-    # one run a step: the first launched, the others replays of its graph,
-    # which holds the one launch
-    assert launch.runs() - before == {"decode_augment": 3}
-    assert launch._GRAPHS[trainer._graph.graph] == {"decode_augment": 1}
+    # one run a step, and one of each BatchNorm kernel a BatchNorm and
+    # step: the first launched, the others replays of its graph, which
+    # holds those launches
+    from speech_recognition_tpu_torch.models.layers import BatchNorm
+    bns = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    bn = dict.fromkeys(("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce",
+                        "bn_bw_dx"), bns)
+    assert bns == 12
+    assert launch.runs() - before == {"decode_augment": 3,
+                                      **{k: 3 * v for k, v in bn.items()}}
+    assert launch._GRAPHS[trainer._graph.graph] == {"decode_augment": 1,
+                                                    **bn}
     assert torch.isfinite(metrics["loss"]).all()
     conf, loss = trainer.evaluate(state)
     assert conf.sum() == 32 and np.isfinite(loss)

@@ -26,6 +26,7 @@ from speech_recognition_tpu_torch.config import (
 from speech_recognition_tpu_torch.data.device_bank import (
     synthetic_device_dataset,
 )
+from speech_recognition_tpu_torch.models.layers import BatchNorm
 from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.train import loop as L
 from speech_recognition_tpu_torch.train.optim import set_learning_rate
@@ -107,7 +108,8 @@ def _run(device, name, graph, schedule=((STEPS, None),)):
         replays=sum(r.name == "train.replay" for r in P.spans()),
         graph_error=tr.graph_error,
         held=(dict(launch._GRAPHS[tr._graph.graph]) if graph
-              and tr._graph is not None else None))
+              and tr._graph is not None else None),
+        batch_norms=sum(isinstance(m, BatchNorm) for m in model.modules()))
     torch.cuda.synchronize()
     return out
 
@@ -143,10 +145,15 @@ def test_replays_redo_the_eager_steps(cuda, name):
     graph = _run(cuda, name, True)
     assert graph["graph_error"] is None
     assert (graph["captures"], graph["replays"]) == (1, STEPS - 1)
-    # one decode+augment a step: the eager first step launches it, the
-    # capture holds it (runs nothing) and each replay runs it once
-    assert graph["held"] == {"decode_augment": 1}
-    assert launch.runs()["decode_augment"] == STEPS
+    # one decode+augment a step, and each BatchNorm kernel once a
+    # BatchNorm: the eager first step launches them, the capture holds
+    # them (runs nothing) and each replay runs them once
+    bn = dict.fromkeys(("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce",
+                        "bn_bw_dx"), graph["batch_norms"])
+    assert graph["batch_norms"] > 0
+    assert graph["held"] == {"decode_augment": 1, **bn}
+    assert launch.runs() == {"decode_augment": STEPS,
+                             **{k: STEPS * v for k, v in bn.items()}}
     _assert_same_steps(eager, other, graph, name)
     # each step's loss a tensor of its own, still holding its value
     assert len({t.data_ptr() for t in graph["losses"]}) == STEPS
