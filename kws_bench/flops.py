@@ -1,11 +1,12 @@
 """Operations of a forward and backward pass, counted from shapes.
 
 ``count_flops`` runs a reference model's forward on the meta device
-under a ``TorchFunctionMode`` that sees each ``F.conv1d`` and each
-matrix product with its operands, so it knows which of them need a
-gradient: a product's forward costs 2 x its multiply-adds, and its
-backward the same again for the weights' gradient and once more for the
-input's gradient where the input needs one (the first layer's does not).
+under a ``TorchFunctionMode`` that sees each ``F.conv1d``, ``F.conv2d``,
+``F.linear`` and matrix product with its operands, so it knows which of
+them need a gradient: a product's forward costs 2 x its multiply-adds,
+and its backward the same again for the weights' gradient and once more
+for the input's gradient where the input needs one (the first layer's
+does not).
 ``torch.utils.flop_counter.FlopCounterMode`` is not used for the
 backward: it counts a grouped convolution's weight gradient as if the
 convolution were dense, C times too high for a depthwise one.
@@ -21,16 +22,22 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 
-def conv1d_flops(x_shape, w_shape, out_len: int) -> int:
-    """2 x multiply-adds of an NCW convolution: each of the B x Cout x
-    Tout outputs sums Cin / groups x k products (``w_shape`` [Cout,
-    Cin / groups, k])."""
-    return 2 * x_shape[0] * w_shape[0] * out_len * w_shape[1] * w_shape[2]
+def conv_flops(out_shape, w_shape) -> int:
+    """2 x multiply-adds of an NCW or NCHW convolution: each of the B x
+    Cout x Tout (x Wout) outputs sums Cin / groups x k (x kw) products
+    (``w_shape`` [Cout, Cin / groups, k(, kw)])."""
+    return 2 * math.prod(out_shape) * math.prod(w_shape[1:])
 
 
 def matmul_flops(a_shape, b_shape) -> int:
     """2 x multiply-adds of [..., M, K] @ [K, N]."""
     return 2 * math.prod(a_shape[:-1]) * a_shape[-1] * b_shape[-1]
+
+
+def linear_flops(x_shape, w_shape) -> int:
+    """2 x multiply-adds of ``F.linear``: [..., K] by ``w_shape`` [N, K]
+    (its bias's additions left out, as a product's are)."""
+    return 2 * math.prod(x_shape[:-1]) * x_shape[-1] * w_shape[0]
 
 
 class _Counter(TorchFunctionMode):
@@ -47,14 +54,17 @@ class _Counter(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func is F.conv1d:
-            self._add(conv1d_flops(args[0].shape, args[1].shape,
-                                   out.shape[-1]), args[0], args[1])
+        if func in (F.conv1d, F.conv2d):
+            self._add(conv_flops(out.shape, args[1].shape), args[0],
+                      args[1])
+        elif func is F.linear:
+            self._add(linear_flops(args[0].shape, args[1].shape), args[0],
+                      args[1])
         elif getattr(func, "__name__", "") in ("matmul", "__matmul__",
                                                "mm"):
             self._add(matmul_flops(args[0].shape, args[1].shape),
                       args[0], args[1])
-        elif func in (F.linear, torch.bmm, torch.addmm, F.conv2d):
+        elif func in (torch.bmm, torch.addmm):
             raise NotImplementedError(f"no count for {func.__name__}")
         return out
 

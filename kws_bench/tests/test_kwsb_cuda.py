@@ -52,8 +52,10 @@ def _broken_run(cell_name, device, monkeypatch, fault):
     from speech_recognition_tpu_torch.train import loop
 
     if fault == "unchanged":
-        monkeypatch.setattr(torch.optim.RMSprop, "step",
-                            lambda self, closure=None: None)
+        for optimizer in (torch.optim.RMSprop, torch.optim.Adam,
+                          torch.optim.SGD):
+            monkeypatch.setattr(optimizer, "step",
+                                lambda self, closure=None: None)
     elif fault == "half_batch":
         update = loop.Trainer._update_step
 

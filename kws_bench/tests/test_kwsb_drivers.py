@@ -58,3 +58,27 @@ def test_a_planted_fault_is_removed_afterwards(tmp_path):
             pass
         assert "_update_step" not in vars(c.tr)
         assert loop.decode_augment is decode_augment
+
+
+class _Recorder:
+    """A trainer's stand-in whose update step records what it is given."""
+
+    def __init__(self):
+        self.seen = []
+
+    def _update_step(self, state, x, labels):
+        self.seen.append((x, labels))
+
+
+def test_half_batch_halves_each_input_of_a_tuple():
+    tr = _Recorder()
+    mfcc, wav = torch.zeros(6, 40), torch.zeros(6, 16000)
+    labels = torch.arange(6)
+    with T.planted(tr, "half_batch"):
+        tr._update_step(None, (mfcc, wav), labels)
+        tr._update_step(None, wav, labels)
+    assert "_update_step" not in vars(tr)
+    (x, lab), (y, lab2) = tr.seen
+    assert isinstance(x, tuple) and [t.shape[0] for t in x] == [3, 3]
+    assert x[0].shape[1] == 40 and x[1].shape[1] == 16000
+    assert y.shape == (3, 16000) and lab.tolist() == lab2.tolist() == [0, 1, 2]

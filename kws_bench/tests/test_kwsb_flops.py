@@ -1,9 +1,12 @@
-"""FLOPs of the two configurations and decode+augment's bytes at the
-cells' shapes, against values worked out by hand."""
+"""FLOPs of the configurations, of 2-D convolutions and Dense layers,
+and decode+augment's bytes at the cells' shapes, against values worked
+out by hand."""
 
+import pytest
 import torch
+import torch.nn.functional as F
 
-from kws_bench import flops
+from kws_bench import flops, harness
 from kws_bench.reference import draws as D
 from kws_bench.reference import flagship, steffenet
 from kws_bench.traffic import _train as T
@@ -79,3 +82,45 @@ def test_decode_augment_bytes():
                 bg_vol=torch.tensor([0.2, 0.0, 0.1, 0.0]))
     # 3 clip rows of int16, 2 background crops and 4 output rows of f32
     assert D.decode_augment_bytes(d, t) == t * (3 * 2 + 2 * 4 + 4 * 4)
+
+
+def _one(fn, *shapes, grads):
+    """The counts of ``fn`` on meta tensors of ``shapes``, each needing a
+    gradient where ``grads`` says so."""
+    args = [torch.empty(s, device="meta").requires_grad_(g)
+            for s, g in zip(shapes, grads)]
+    with flops._Counter() as c:
+        fn(*args)
+    return c.forward, c.backward
+
+
+@pytest.mark.parametrize("x_grad", [False, True])
+def test_a_conv2d_is_counted(x_grad):
+    # [B, Cin, H, W] = [3, 4, 20, 8], 6 filters of 5 x 3 in 2 groups,
+    # stride (2, 1), SAME-like padding (2, 1): out [3, 6, 10, 8]
+    fwd, bwd = _one(lambda x, w: F.conv2d(x, w, stride=(2, 1),
+                                          padding=(2, 1), groups=2),
+                    (3, 4, 20, 8), (6, 2, 5, 3), grads=(x_grad, True))
+    assert fwd == 2 * 3 * 6 * 10 * 8 * (4 // 2) * 5 * 3
+    assert bwd == fwd * (1 + int(x_grad))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_a_dense_layer_is_counted(bias):
+    shapes = [(7, 5, 16), (9, 16)] + ([(9,)] if bias else [])
+    fwd, bwd = _one(lambda x, w, *b: F.linear(x, w, *b), *shapes,
+                    grads=(True, True, True))
+    assert fwd == 2 * 7 * 5 * 16 * 9
+    assert bwd == 2 * fwd
+
+
+# each configuration's FLOPs a step before 2-D convs and Dense layers
+# were counted: train_mfu keeps its meaning
+STEP_FLOPS = {"flagship": 124_861_464_576, "steffenet": 815_410_446_336,
+              "xception": 474_400_014_336}
+
+
+@pytest.mark.parametrize("config", sorted(STEP_FLOPS))
+def test_the_configurations_step_flops_are_unchanged(config):
+    cfg = harness.load_config(config)
+    assert T.step_flops(harness.reference(cfg), cfg) == STEP_FLOPS[config]

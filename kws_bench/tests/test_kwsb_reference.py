@@ -130,3 +130,16 @@ def test_bn_gap_is_in_standard_deviations():
     prog = {"a": (torch.tensor([0.2, 1.0]), torch.tensor([4.0, 1.1]))}
     # mean gaps 0.1 and 0 std, variance gaps 0 and 0.1: rms over 4
     assert RT.bn_gap(prog, ref) == pytest.approx((0.02 / 4) ** 0.5)
+
+
+def test_bn_gap_is_zero_without_batchnorm():
+    assert RT.bn_gap({}, {}) == 0.0
+
+
+def test_feature_gap_takes_the_worst_input_of_a_tuple():
+    ref = (torch.tensor([1.0, -2.0]), torch.tensor([4.0, 0.0]))
+    prog = (torch.tensor([1.0, -1.9]), torch.tensor([4.0, 1.0]))
+    assert RT.feature_gap(prog[0], ref[0]) == pytest.approx(0.05)
+    assert RT.feature_gap(prog, ref) == pytest.approx(0.25)
+    with pytest.raises(ValueError):
+        RT.feature_gap(prog[:1], ref)

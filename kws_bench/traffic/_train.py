@@ -50,10 +50,52 @@ def training_weights(ctx: harness.Context, model) -> Dict[str, Any]:
             for k, v in w.items()}
 
 
+def optimizer_constants(opt) -> Dict[str, float]:
+    """The constants of the optimizer the zoo's recipe built, under the
+    configuration's names."""
+    group = opt.param_groups[0]
+    if isinstance(opt, torch.optim.RMSprop):
+        return {"rho": group["alpha"], "epsilon": group["eps"]}
+    if isinstance(opt, torch.optim.Adam):
+        return {"beta_1": group["betas"][0], "beta_2": group["betas"][1],
+                "epsilon": group["eps"]}
+    if isinstance(opt, torch.optim.SGD):
+        return {"momentum": group["momentum"]}
+    raise TypeError(f"no check of a {type(opt).__name__}: the benchmark "
+                    f"checks RMSprop, Adam and SGD")
+
+
+def first_gradient(opt, param: torch.Tensor) -> torch.Tensor:
+    """|g| of each element of ``param``'s gradient in the optimizer's
+    first step, from its state after that step: RMSprop's accumulator
+    is (1 - alpha) g^2, Adam's second moment (1 - beta2) g^2, SGD's
+    momentum buffer g (so SGD without momentum, which keeps none, is
+    refused). A parameter that the step left without state had no
+    gradient."""
+    group = opt.param_groups[0]
+    if isinstance(opt, torch.optim.RMSprop):
+        key, keep = "square_avg", 1.0 - group["alpha"]
+    elif isinstance(opt, torch.optim.Adam):
+        key, keep = "exp_avg_sq", 1.0 - group["betas"][1]
+    elif isinstance(opt, torch.optim.SGD) and group["momentum"] > 0:
+        key, keep = "momentum_buffer", None
+    else:
+        raise TypeError(f"no first gradient from a {type(opt).__name__} "
+                        f"with {dict(group, params=None)}: RMSprop, Adam "
+                        f"and SGD with momentum keep it")
+    state = opt.state[param]
+    if key not in state:
+        return torch.zeros_like(param)
+    if keep is None:
+        return state[key].abs()
+    return (state[key] / keep).sqrt()
+
+
 def trainer(ctx: harness.Context, dataset, weights):
-    """The port's ``Trainer`` for the configuration, its state loaded
-    with the benchmark's weights, after a check that the zoo's recipe is
-    the configuration's."""
+    """The port's ``Trainer`` for the configuration (its feature geometry
+    from the configuration's ``model_settings``, where it has one), its
+    state loaded with the benchmark's weights, after a check that the
+    zoo's recipe and the optimizer's constants are the configuration's."""
     from speech_recognition_tpu_torch.config import (
         AugmentConfig, prepare_model_settings,
     )
@@ -63,7 +105,8 @@ def trainer(ctx: harness.Context, dataset, weights):
     aug = dict(cfg["augment"])
     aug["time_shift_range"] = tuple(aug["time_shift_range"])
     tr = Trainer(cfg["model"], prepare_model_settings(
-                     label_count=cfg["num_classes"]), dataset,
+                     label_count=cfg["num_classes"],
+                     **cfg.get("model_settings", {})), dataset,
                  augment=AugmentConfig(**aug),
                  batch_size=cfg["batch_size"],
                  seed=harness.derive_seed(ctx.seed, 3),
@@ -71,52 +114,73 @@ def trainer(ctx: harness.Context, dataset, weights):
     spec = tr.spec
     recipe = {"optimizer": spec.optimizer,
               "learning_rate": spec.learning_rate,
+              "momentum": spec.momentum,
               "label_smoothing": spec.label_smoothing,
               "l2_reg": spec.l2_reg}
-    wanted = {k: cfg[k] for k in recipe}
+    wanted = {k: cfg.get(k, 0.0) if k == "momentum" else cfg[k]
+              for k in recipe}
     if recipe != wanted:
         raise RuntimeError(f"the zoo's recipe {recipe} is not the "
                            f"configuration's {wanted}")
     state = tr.init_state()
+    built = optimizer_constants(state.optimizer)
+    wanted = {k: cfg.get(k) for k in built}
+    if built != wanted:
+        raise RuntimeError(f"the program's optimizer has {built}, the "
+                           f"configuration {wanted}")
     state.model.load_state_dict(weights, strict=True)
     return tr, state
+
+
+def _detached(x):
+    """A float copy of a model input: a tensor, or each of a tuple."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_detached(t) for t in x)
+    return x.detach().float().clone()
+
+
+class _Tap:
+    """The trainer's frontend, keeping a copy of the first waveform it is
+    handed (decode+augment's output) and of the model input it makes."""
+
+    def __init__(self, frontend):
+        self.frontend = frontend
+        self.seen = None
+
+    def features(self, wav, representation=None):
+        out = self.frontend.features(wav, representation)
+        if self.seen is None:
+            w = _detached(wav)
+            self.seen = (w, w if out is wav else _detached(out))
+        return out
 
 
 def checked_steps(tr, state, step: Callable[[], Dict[str, torch.Tensor]],
                   names: List[str], weights) -> Dict[str, Any]:
     """The program's first steps through the window's own call: the
-    first step's model input (decode+augment's output, as the step hands
-    it to the model), each step's loss, each element's first gradient as
-    RMSprop holds it after one step (its accumulator is (1 - rho) g^2,
-    so |g| and no sign), and each leaf's change after the last step,
+    first step's waveform from decode+augment (as the trainer hands it
+    to its frontend) and model input (the frontend's features of it: the
+    waveform itself for a raw model), each step's loss, each element's
+    first gradient's magnitude from the optimizer's state after one step
+    (``first_gradient``), and each leaf's change after the last step,
     before the next moves it."""
     params = dict(state.model.named_parameters())
     buffers = dict(state.model.named_buffers())
     opt = state.optimizer
     losses, grads, bn_stats = [], None, None
-    own = "_update_step" in vars(tr)
-    update, inputs = tr._update_step, []
-
-    def first(state_, x, labels):
-        inputs.append(x.detach().float().clone())
-        return update(state_, x, labels)
-
-    tr._update_step = first
+    frontend = tr.frontend
+    tap = tr.frontend = _Tap(frontend)
     for i in range(CHECKED_STEPS):
         losses.append(step()["loss"])
         if i == 0:
-            if own:
-                tr._update_step = update
-            else:
-                del tr._update_step
-            keep = 1.0 - opt.param_groups[0]["alpha"]
-            grads = [(opt.state[params[n]]["square_avg"] / keep).sqrt()
-                     if "square_avg" in opt.state[params[n]]
-                     else torch.zeros_like(params[n]) for n in names]
+            tr.frontend = frontend
+            grads = [first_gradient(opt, params[n]) for n in names]
             bn_stats = batch_stats(buffers, weights)
     change = torch.stack([(params[n].detach() - weights[n]).norm()
                           for n in names])
-    return {"inputs": inputs[0], "losses": torch.stack(losses).float(),
+    inputs, features = tap.seen
+    return {"inputs": inputs, "features": features,
+            "losses": torch.stack(losses).float(),
             "grads": grads, "change_norms": change, "bn_stats": bn_stats}
 
 
@@ -171,22 +235,31 @@ def traced(ctx: harness.Context, run_steps: Callable[[int], Any],
 
 def step_flops(model, cfg: Dict[str, Any]) -> int:
     """FLOPs of one step's forward and backward, from the reference
-    model's shapes."""
+    model's shapes, its features' products among them where it makes
+    features."""
     shapes = model.param_shapes(cfg["num_classes"])
     b = cfg["batch_size"]
     keep = [torch.ones(s, dtype=torch.bool, device="meta")
             for s, _ in model.dropout_shapes(b)]
+    featurize = getattr(model, "features", lambda wav: wav)
     return count_flops(
-        lambda p, x: model.forward(p, x, True, keep),
+        lambda p, x: model.forward(p, featurize(x), True, keep),
         {n: s for n, s, _ in shapes},
         {n: k in RT.KINDS_TRAINED for n, _, k in shapes},
         b, cfg["clip_samples"])["step"]
 
 
+def compared(ref: Dict[str, Any]) -> tuple:
+    """The names of the numbers a cell compares: ``NUMBERS``, and
+    ``feature_gap`` where its reference makes features."""
+    return NUMBERS + (("feature_gap",) if ref.get("features") is not None
+                      else ())
+
+
 def numbers(prog: Dict[str, torch.Tensor], ref: Dict[str, Any],
             limits: Dict[str, float]) -> List[harness.Check]:
     got = RT.compare(prog, ref)
-    return [harness.Check(k, got[k], limits[k]) for k in NUMBERS]
+    return [harness.Check(k, got[k], limits[k]) for k in compared(ref)]
 
 
 def trained_names(model, cfg) -> List[str]:
@@ -279,14 +352,21 @@ def details(prog: Dict[str, Any], ref: Dict[str, Any]) -> Dict[str, Any]:
 @contextlib.contextmanager
 def planted(tr, fault: str):
     """A fault planted in the program's timed path: ``half_batch``, half
-    of the batch left out and the loss the mean over the rest;
-    ``wrong_roll``, decode+augment's time shifts turned the wrong way."""
+    of the batch left out (of each tensor of a tuple input) and the loss
+    the mean over the rest; ``wrong_roll``, decode+augment's time shifts
+    turned the wrong way."""
     from speech_recognition_tpu_torch.train import loop
 
     if fault == "half_batch":
         update = tr._update_step
+
+        def half(x, h):
+            if isinstance(x, (tuple, list)):
+                return type(x)(half(t, h) for t in x)
+            return x[:h]
         tr._update_step = lambda state, x, labels: update(
-            state, x[:x.shape[0] // 2], labels[:x.shape[0] // 2])
+            state, half(x, labels.shape[0] // 2),
+            labels[:labels.shape[0] // 2])
         try:
             yield
         finally:
