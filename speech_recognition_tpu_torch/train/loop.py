@@ -98,7 +98,7 @@ from speech_recognition_tpu_torch.train import metrics as M
 from speech_recognition_tpu_torch.train.optim import (
     build_optimizer, l2_kernel_penalty, smooth_cross_entropy,
 )
-from speech_recognition_tpu_torch.utils.profiling import span
+from speech_recognition_tpu_torch.utils.profiling import device_spans, span
 
 
 @dataclasses.dataclass
@@ -250,14 +250,22 @@ class Trainer:
 
     def build_batch(self, d: Draws):
         """Decode + augment (one kernel launch) + featurize this rank's
-        rows of the (global) draws."""
+        rows of the (global) draws. A model that takes features times
+        the frontend on the card as the device span ``frontend.forward``
+        (``device_spans``; a replay of the step's graph records it too);
+        a raw model's waveform, which the frontend hands back as it is,
+        records no span."""
         args = (self.dataset.wav_bank, self._bg_flat, d.file_ids, d.shifts,
                 d.fg_vol, d.bg_pos, d.bg_vol)
         if self.mesh.size > 1:
             wav = decode_augment_sharded(self.mesh, *args)
         else:
             wav = decode_augment(*args)
-        return self.frontend.features(wav, self.spec.representation)
+        rep = self.spec.representation
+        if rep == "raw":
+            return self.frontend.features(wav, rep)
+        return device_spans(
+            "frontend", lambda w: self.frontend.features(w, rep), wav)
 
     def _update_step(self, state: TrainState, x: torch.Tensor,
                      labels: torch.Tensor) -> Dict[str, torch.Tensor]:
