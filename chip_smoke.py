@@ -183,6 +183,7 @@ the peak rate of its type, the H100 SXM data sheet's) and ``{"ok": true,
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -220,7 +221,11 @@ DEVICE_TRACES = 3
 L2_FLUSH_BYTES = 64 << 20
 DECODE_KERNEL = r"decode_augment_kernel"
 KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd",
-                  "gru_recurrence", "batchnorm")
+                  "gru_recurrence", "batchnorm", "maxpool")
+# the [maxpool] phase: the two benchmark models that pool (every pool of
+# a step at batch 384), the kernels' names
+MAXPOOL_MODELS = ("xception_with_attention", "conv_1d_mfcc_and_raw")
+MAXPOOL_KERNELS = ("maxpool1d_fw", "maxpool1d_bw")
 # the [bn] phase: the benchmark's three models (their BatchNorm inputs at
 # batch 384), the kernels' names, the traced calls a reading averages.
 # Kernels and twin sum in f32 in other orders, over up to 153,216 terms
@@ -1497,6 +1502,158 @@ def bn_phase(device, card: str, ptxas: list[str]) -> dict:
     }
 
 
+def pool_shapes(model_name: str) -> list:
+    """(C, T, pool, stride, padding) of each last-axis max pool of
+    ``model_name``, in the forward's order (one CPU pass at batch 2 on
+    its representation's input at the default geometry)."""
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
+
+    s = prepare_model_settings(label_count=12)
+    model, spec = build_model(
+        model_name, num_classes=12, spectrogram_length=s.spectrogram_length,
+        num_log_mel_features=s.num_log_mel_features,
+        spectrogram_frequencies=s.spectrogram_frequencies,
+        window_size_samples=s.window_size_samples,
+        window_stride_samples=s.window_stride_samples)
+    x = Frontend(s).features(torch.randn(2, T) * 0.1, spec.representation)
+    with recording_pools() as shapes, torch.no_grad():
+        model.train()(x, torch.Generator())
+    return shapes
+
+
+@contextlib.contextmanager
+def recording_pools():
+    """Within: (C, T, pool, stride, padding) of each max pool along a
+    last axis (``models/layers.py::_max_pool_axis``, which the max-pool
+    kernels take on a card), appended to the list it gives, in order."""
+    from speech_recognition_tpu_torch.models import layers as L
+
+    shapes, chain = [], L._max_pool_axis
+
+    def hook(x, pool, stride, padding, dim):
+        if dim % x.ndim == x.ndim - 1:
+            shapes.append((x.shape[1], x.shape[-1], pool, stride, padding))
+        return chain(x, pool, stride, padding, dim)
+
+    L._max_pool_axis = hook
+    try:
+        yield shapes
+    finally:
+        L._max_pool_axis = chain
+
+
+def maxpool_phase(device, card: str, ptxas: list[str]) -> dict:
+    """The [maxpool] phase: the max-pool kernels (``ops/kernels/
+    maxpool.py``) at every pool of the benchmark's two pooling models,
+    batch 384, bf16 (the train step's): the kernels against their plain
+    twin at each distinct shape (y and dx bit for bit: both take the
+    same f32 sums in the same order), then, for each model, the device
+    ms of one step's pools forward and backward (each pool once, the
+    backward in reverse order) through the two kernels, through the
+    plain twin and through the chain of ``torch.maximum`` with its
+    autograd (the layer before the kernels; no one PyTorch call computes
+    this function: ``F.max_pool1d`` splits no tie), beside the bytes the
+    function has to move (x read and y written forward; x and dy read
+    and dx written backward) over 3.35 TB/s. Launches are counted where
+    the train steps of [slice] and [zoo] run them (``launch.runs``)."""
+    from speech_recognition_tpu_torch.models import layers as L
+    from speech_recognition_tpu_torch.ops.kernels import maxpool as MP
+
+    for line in ptxas:
+        log(f"[maxpool] ptxas -v {line}")
+    models, inputs = {}, {}
+    for name in MAXPOOL_MODELS:
+        models[name] = pool_shapes(name)
+        for shape in models[name]:
+            if shape in inputs:
+                continue
+            c, t, pool, stride, padding = shape
+            g = torch.Generator().manual_seed(len(inputs))
+            out = MP.window(t, pool, stride, padding)[0]
+            x = torch.randn((BATCH, c, t), generator=g).relu().to(
+                device, torch.bfloat16)
+            dy = torch.randn((BATCH, c, out), generator=g).to(
+                device, torch.bfloat16)
+            inputs[shape] = (x, dy)
+            got = (MP.maxpool_forward(x, pool, stride, padding),
+                   MP.maxpool_backward(dy, x, pool, stride, padding))
+            want = (MP.maxpool_forward_plain(x, pool, stride, padding),
+                    MP.maxpool_backward_plain(dy, x, pool, stride, padding))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"[maxpool] {shape}: kernels against "
+                                   f"the plain twin differ")
+    log(f"[maxpool] kernels against the plain twin at {len(inputs)} "
+        f"shapes, batch {BATCH}, bf16: y and dx bit for bit | {card}")
+
+    def step(shapes, forward, backward):
+        def run():
+            for shape in shapes:
+                forward(inputs[shape][0], *shape[2:])
+            for shape in shapes[::-1]:
+                backward(*inputs[shape][::-1], *shape[2:])
+        return run
+
+    def chain(shapes):
+        def run():
+            ys = []
+            for shape in shapes:
+                x = inputs[shape][0].detach().requires_grad_(True)
+                ys.append(L._max_pool_axis(x, *shape[2:], -1))
+            for shape, y in zip(shapes[::-1], ys[::-1]):
+                y.backward(inputs[shape][1])
+        return run
+
+    records = {}
+    for name, shapes in models.items():
+        elements = sum(BATCH * c * t for c, t, *_ in shapes)
+        outputs = sum(BATCH * c * MP.window(t, *rest)[0]
+                      for c, t, *rest in shapes)
+        k = device_ms_by_kernel(step(shapes, MP.maxpool_forward,
+                                     MP.maxpool_backward))
+        by_kernel = {n: sum(v for e, v in k.items() if n in e)
+                     for n in MAXPOOL_KERNELS}
+        ms = sum(by_kernel.values())
+        plain_ms = sum(device_ms_by_kernel(step(
+            shapes, MP.maxpool_forward_plain,
+            MP.maxpool_backward_plain)).values())
+        kernel_dtypes, L.MAXPOOL_KERNEL_DTYPES = L.MAXPOOL_KERNEL_DTYPES, ()
+        try:
+            chain_k = device_ms_by_kernel(chain(shapes))
+        finally:
+            L.MAXPOOL_KERNEL_DTYPES = kernel_dtypes
+        chain_ms = sum(chain_k.values())
+        nbytes = 2 * (3 * elements + 2 * outputs)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        records[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "chain_ms": chain_ms, "bound_ms": bound}
+        log(f"[maxpool] {name}: {len(shapes)} pools, {elements:,} input and "
+            f"{outputs:,} output elements a step; kernels {ms:.4f} ms ("
+            + ", ".join(f"{n} {v:.4f}" for n, v in by_kernel.items())
+            + f"); bound {bound:.4f} ms ({nbytes / 1e9:.4f} GB; "
+            f"{100 * bound / ms:.1f} %); plain twin {plain_ms:.4f} ms; the "
+            f"chain before the kernels {chain_ms:.4f} ms in "
+            f"{len(chain_k)} kernel names; device ms a step, mean of "
+            f"{BN_ITERS} | {card}")
+    main = records[MAXPOOL_MODELS[0]]
+    return {
+        "name": "maxpool",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/maxpool.cu",
+        "replaces": None,
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "before_ms": main["chain_ms"],
+    }
+
+
 def edge_case_draws(trainer, ds, starts=(0,)):
     """A training batch's draws with the kernel's edge cases written in
     from each row of ``starts``: zero and most-negative shifts, silence
@@ -2010,7 +2167,8 @@ def _to(x, device):
     return x.to(device)
 
 
-def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
+def zoo_phase(device, card: str, ds,
+              settings) -> tuple[int, dict, dict, dict]:
     """The [zoo] phase, on [slice]'s full-corpus bank ``ds``: for each of
     the 23 models of ``ZOO_PARAMS``, at its golden's geometry (98 frames;
     60 mel features, 40 for ``ZOO_MEL_40``; 257 bins), its parameter
@@ -2025,11 +2183,12 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
     against its plain version on one of the model's own draws, and the
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
     against the events' step. A model with BiGRUs runs each GRU kernel
-    once a BiGRU and step, and each BatchNorm kernel once a BatchNorm
-    and step, launched or replayed (``launch.runs``). Returns the runs of
-    decode+augment in the trainers' steps, those of the GRU kernels by
-    model and those of the BatchNorm kernels by model (read before the
-    comparison and the trace)."""
+    once a BiGRU and step, each BatchNorm kernel once a BatchNorm and
+    step, and each max-pool kernel once a pool along a last axis (as the
+    CPU forward meets them) and step, launched or replayed
+    (``launch.runs``). Returns the runs of decode+augment in the
+    trainers' steps, and those of the GRU, BatchNorm and max-pool
+    kernels by model (read before the comparison and the trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train, traced_train_device_time,
@@ -2047,7 +2206,7 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
     if missing:
         raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
     clips = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
-    total, gru_total, bn_total = 0, {}, {}
+    total, gru_total, bn_total, maxpool_total = 0, {}, {}, {}
     for name, golden in ZOO_PARAMS.items():
         t0 = time.perf_counter()
         s = dataclasses.replace(settings, num_log_mel_features=(
@@ -2070,7 +2229,8 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
         torch.backends.cuda.matmul.allow_tf32 = False
         model = with_batch_stats(model, x)
         with torch.no_grad():
-            want = model(x)
+            with recording_pools() as pools:
+                want = model(x)
             got = copy.deepcopy(model).to(device)(_to(x, device)).cpu()
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -2117,6 +2277,14 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
                                f"{ZOO_STEPS + ZOO_WARMUP} train steps of "
                                f"{bns} BatchNorm(s)")
         bn_total[name] = sum(bn.values())
+        mp = {k: runs[k] for k in MAXPOOL_KERNELS}
+        if mp != dict.fromkeys(MAXPOOL_KERNELS,
+                               (ZOO_STEPS + ZOO_WARMUP) * len(pools)):
+            raise RuntimeError(f"[zoo] {name}: max-pool kernel runs {mp} "
+                               f"in {ZOO_STEPS + ZOO_WARMUP} train steps of "
+                               f"{len(pools)} last-axis pool(s)")
+        if pools:
+            maxpool_total[name] = sum(mp.values())
         if trainer.graph_error is not None:
             eager.append(name)
         if len(losses) != ZOO_STEPS + ZOO_WARMUP \
@@ -2135,7 +2303,9 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
             f"runs {launches} (launched or in replays of the step's CUDA "
             f"graph; capture error: {trainer.graph_error}), vs plain "
             f"{kernel_err:.3g}; GRU kernel runs {grus}; BatchNorm kernel "
-            f"runs {bn[BN_KERNELS[0]]} each ({bns} BatchNorms a step)")
+            f"runs {bn[BN_KERNELS[0]]} each ({bns} BatchNorms a step); "
+            f"max-pool kernel runs {mp[MAXPOOL_KERNELS[0]]} each "
+            f"({len(pools)} last-axis pools a step)")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
             f"{result['ms_per_step']:.3f} ms/step, "
             f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
@@ -2157,7 +2327,7 @@ def zoo_phase(device, card: str, ds, settings) -> tuple[int, dict, dict]:
         f"BatchNorm kernel runs {bn_total}; models "
         f"whose capture of the train step failed, their steps eager: "
         f"{eager or 'none'}")
-    return total, gru_total, bn_total
+    return total, gru_total, bn_total, maxpool_total
 
 
 def hold_decode_augment(bank, bg_flat, d, label: str) -> float:
@@ -2776,7 +2946,6 @@ def run_tool(tool, argv, tag: str = "[infer]", keep=None) -> object:
     """``tool.main(argv)`` in this process, its stdout echoed under
     ``tag |`` (only the lines ``keep`` accepts, if given); returns what
     it returned."""
-    import contextlib
     import io
 
     out = io.StringIO()
@@ -3053,7 +3222,6 @@ def bench_infer_runs(td, card: str) -> None:
     """[infer] (c): ``tools.bench_infer`` on the flagship at batch 384,
     random weights, over a tree of 7,777 WAVs, with TTA and without; its
     JSON line and diagnostics echoed."""
-    import contextlib
     import io
     import math
 
@@ -3402,6 +3570,8 @@ def main() -> int:
     separable_kernels.append(gru_kernel)
     bn_kernel = bn_phase(device, card, ptxas["batchnorm"])
     separable_kernels.append(bn_kernel)
+    maxpool_kernel = maxpool_phase(device, card, ptxas["maxpool"])
+    separable_kernels.append(maxpool_kernel)
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -3441,6 +3611,7 @@ def main() -> int:
     runs = launch.runs()
     launches = runs["decode_augment"]
     bn_slice = {k: runs[k] for k in BN_KERNELS}
+    maxpool_slice = {k: runs[k] for k in MAXPOOL_KERNELS}
     losses = result["losses"]
     if launches != STEPS + WARMUP:
         raise RuntimeError(f"{launches} kernel launches in "
@@ -3450,6 +3621,12 @@ def main() -> int:
         raise RuntimeError(f"BatchNorm kernel runs {bn_slice} in "
                            f"{STEPS + WARMUP} train steps of {bns} "
                            f"BatchNorms")
+    pools = len(pool_shapes(MODEL))
+    if maxpool_slice != dict.fromkeys(MAXPOOL_KERNELS,
+                                      (STEPS + WARMUP) * pools):
+        raise RuntimeError(f"max-pool kernel runs {maxpool_slice} in "
+                           f"{STEPS + WARMUP} train steps of {pools} "
+                           f"last-axis pools")
     if len(losses) != STEPS + WARMUP or not np.isfinite(losses).all():
         raise RuntimeError(f"losses: {losses}")
     expected = (NUM_VAL // BATCH) * BATCH
@@ -3465,18 +3642,26 @@ def main() -> int:
     log(f"[slice] validation: {conf.sum()} clips in {eval_s:.2f} s, "
         f"accuracy {np.trace(conf) / conf.sum():.4f}, loss {val_loss:.4f}; "
         f"kernel launches in the main path: {launches}; BatchNorm kernel "
-        f"runs {bn_slice} ({bns} BatchNorms a step, launched or replayed)")
+        f"runs {bn_slice} ({bns} BatchNorms a step, launched or replayed); "
+        f"max-pool kernel runs {maxpool_slice} ({pools} last-axis pools a "
+        f"step)")
 
     # 7. the other 23 zoo models on the same bank, each with the counts
     # set to 0 just before its steps
     del trainer, state
     torch.cuda.empty_cache()
-    zoo_launches, gru_zoo, bn_zoo = zoo_phase(device, card, ds, settings)
+    zoo_launches, gru_zoo, bn_zoo, maxpool_zoo = zoo_phase(device, card, ds,
+                                                          settings)
     gru_kernel["launches_by_path"] = {"zoo": sum(gru_zoo.values())}
     gru_kernel["launches"] = sum(gru_zoo.values())
     bn_kernel["launches_by_path"] = {"slice": sum(bn_slice.values()),
                                      "zoo": sum(bn_zoo.values())}
     bn_kernel["launches"] = sum(bn_kernel["launches_by_path"].values())
+    maxpool_kernel["launches_by_path"] = {
+        "slice": sum(maxpool_slice.values()),
+        "zoo": sum(maxpool_zoo.values())}
+    maxpool_kernel["launches"] = sum(
+        maxpool_kernel["launches_by_path"].values())
 
     # 8. data-parallel training, in processes of their own
     del ds, d, bg, args

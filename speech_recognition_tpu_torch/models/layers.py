@@ -32,6 +32,10 @@ from speech_recognition_tpu_torch.ops.kernels.batchnorm import (
 )
 from speech_recognition_tpu_torch.ops.kernels.gru import gru_recurrence
 from speech_recognition_tpu_torch.ops.kernels.launch import aligned
+from speech_recognition_tpu_torch.ops.kernels.maxpool import (
+    KERNEL_DTYPES as MAXPOOL_KERNEL_DTYPES, MAX_POOL as MAXPOOL_MAX_POOL,
+    max_pool_last, window as pool_window,
+)
 from speech_recognition_tpu_torch.parallel.collectives import all_reduce_sum
 from speech_recognition_tpu_torch.utils.profiling import device_spans, span
 
@@ -391,16 +395,23 @@ def _max_pool_axis(x: torch.Tensor, pool: int, stride: int, padding: str,
     SAME pads with -inf, left = total // 2. The chain's gradient splits
     the cotangent between tied maxima, as the JAX pool's ``jnp.maximum``
     chain does; ``F.max_pool1d`` would give it all to the first.
+
+    On a card, the last axis of a tensor in a dtype the kernels take
+    (float32, bfloat16, float16) is pooled by the max-pool kernels
+    (``ops/kernels/maxpool.py``), which give the chain's values and its
+    gradient in one launch a direction; any other axis or dtype, a window
+    longer than the kernels take, and the CPU, take the chain. Both take
+    the window's geometry from ``maxpool.window``.
     """
     dim %= x.ndim
-    t = x.shape[dim]
+    if (x.is_cuda and dim == x.ndim - 1
+            and x.dtype in MAXPOOL_KERNEL_DTYPES
+            and pool <= MAXPOOL_MAX_POOL):
+        return max_pool_last(x, pool, stride, padding)
+    out, left, right = pool_window(x.shape[dim], pool, stride, padding)
     if padding.lower() == "same":
-        out = -(-t // stride)
-        pads = [0, 0] * (x.ndim - 1 - dim) + list(
-            same_pad_amount(t, pool, stride))
-        x = F.pad(x, pads, value=float("-inf"))
-    else:
-        out = (t - pool) // stride + 1
+        x = F.pad(x, [0, 0] * (x.ndim - 1 - dim) + [left, right],
+                  value=float("-inf"))
     last = (out - 1) * stride + 1
 
     def tap(i):
