@@ -98,7 +98,9 @@ from speech_recognition_tpu_torch.train import metrics as M
 from speech_recognition_tpu_torch.train.optim import (
     build_optimizer, l2_kernel_penalty, smooth_cross_entropy,
 )
-from speech_recognition_tpu_torch.utils.profiling import device_spans, span
+from speech_recognition_tpu_torch.utils.profiling import (
+    device_span, device_spans, span,
+)
 
 
 @dataclasses.dataclass
@@ -274,7 +276,9 @@ class Trainer:
         ``.grad`` holds this step's gradient (of the global batch), and
         the metrics are means over the global batch. Its phases are spans
         (``utils/profiling.py::span``): ``train.optimizer`` twice, since
-        the gradients are cleared before the backward."""
+        the gradients are cleared before the backward. The update alone
+        is timed on the card as the device span ``optimizer.step``
+        (``device_span``; a replay of the step's graph records it too)."""
         model = state.model
         model.train()
         with span("train.forward"), self._autocast():
@@ -289,7 +293,8 @@ class Trainer:
             loss.backward()
             if self.mesh.size > 1:
                 average_gradients(model.parameters(), self.mesh)
-        with span("train.optimizer"):
+        with span("train.optimizer"), \
+                device_span("optimizer.step", self.device):
             state.optimizer.step()
         state.step += 1
         acc = (logits.argmax(-1) == labels).float().mean()

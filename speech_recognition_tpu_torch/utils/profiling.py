@@ -13,6 +13,7 @@ timeline beside the card's kernels; outside a capture it never does.
 forward and backward, by CUDA timing events that a CUDA graph's capture
 keeps as nodes, so that every replay times it again; each reading joins
 the ring as a ``reading`` once its events have completed.
+``device_span`` does the same for the block it encloses.
 
 ``trace_context`` captures a ``torch.profiler`` trace of the enclosed
 block (the card's kernels, copies and memsets by CUPTI, and the host's
@@ -320,6 +321,24 @@ def device_spans(name: str, fn: Callable[[torch.Tensor], torch.Tensor],
         y = on_backward(y, backward_begins)
     _end(forward)
     return y
+
+
+@contextlib.contextmanager
+def device_span(name: str, device: torch.device) -> Iterator[None]:
+    """The enclosed block timed on the card as the device span ``name``,
+    for work that no tensor flows through (an optimizer's update in
+    place, say)::
+
+        with device_span("optimizer.step", params[0].device):
+            optimizer.step()
+
+    Where ``device`` is not a CUDA device, the block alone."""
+    if device.type != "cuda":
+        yield
+        return
+    pair = _begin(name)
+    yield
+    _end(pair)
 
 
 @contextlib.contextmanager

@@ -259,10 +259,11 @@ def _trainer(device):
 
 
 def _gru_ms(steps):
-    """gru.forward + gru.backward of each of ``steps`` read so far."""
+    """gru.forward + gru.backward of each of ``steps`` read so far (the
+    step's other device spans, ``optimizer.step``, left out)."""
     per = {}
     for r in _readings():
-        if r.step in steps:
+        if r.step in steps and r.name.startswith("gru."):
             per.setdefault(r.step, {})[r.name] = r.device_ms
     return [sum(v.values()) for v in per.values() if len(v) == 2]
 
