@@ -77,6 +77,17 @@ with the host compiler at its first use) and drives these paths:
   ``[zoo]`` check that every train step, launched or replayed, runs each
   kernel once a BatchNorm of the model (12 for the flagship, 32 for
   ``steffeNet``, 27 for ``xception_with_attention``);
+- the depthwise conv (``[dwconv]``): holds its kernels
+  (``ops/kernels/dwconv1d.py``) against the float64 plain twin at every
+  depthwise conv of the benchmark's five models at batch 384 (bf16 x and
+  dy, the f32 weight), then prints, for each model, the device ms of one
+  step's convs forward and backward through the kernels beside their byte
+  floor, the plain twin's, ATen's depthwise kernels' (``library_ms``) and
+  the layer's before the kernels (``F.pad`` and ``F.conv1d`` with their
+  autograd); ``[slice]`` and ``[zoo]`` check that every train step runs
+  each kernel once a depthwise conv (11 for the flagship; 13 zoo models
+  have such convs), and ``[slice]`` that each batch of its validation
+  sweep runs the forward kernel once more a conv;
 - data-parallel training (``[dp]``): two ranks, spawned processes joined
   by NCCL when each has a card of its own and by gloo when they share
   one. Each rank builds and replicates the full-corpus bank, holds
@@ -221,7 +232,15 @@ DEVICE_TRACES = 3
 L2_FLUSH_BYTES = 64 << 20
 DECODE_KERNEL = r"decode_augment_kernel"
 KERNEL_SOURCES = ("decode_augment", "separable_block", "separable_block_bwd",
-                  "gru_recurrence", "batchnorm", "maxpool")
+                  "gru_recurrence", "batchnorm", "maxpool", "dwconv1d")
+# the [dwconv] phase: the benchmark's five models (every depthwise conv of
+# a step at batch 384), the kernels' names; the kernels against the
+# float64 twin: y and dx one rounding to bf16 of an f32 sum of k terms,
+# dw f32 sums in a fixed tree (see tests/test_torch_dwconv1d.py)
+DWCONV_MODELS = (MODEL, "steffeNet", "xception_with_attention",
+                 "conv_1d_mfcc_and_raw", "conv_1d_simple")
+DWCONV_KERNELS = ("dwconv1d_fw", "dwconv1d_bw")
+DWCONV_TOL = {"y": 2.0 ** -20, "dx": 2.0 ** -20, "dw": 2.0 ** -16}
 # the [maxpool] phase: the two benchmark models that pool (every pool of
 # a step at batch 384), the kernels' names
 MAXPOOL_MODELS = ("xception_with_attention", "conv_1d_mfcc_and_raw")
@@ -1654,6 +1673,184 @@ def maxpool_phase(device, card: str, ptxas: list[str]) -> dict:
     }
 
 
+def depthwise_convs(model) -> int:
+    """The convs of ``model`` that the depthwise kernels take on a card
+    (``Conv.depthwise_1d``); a step runs each once a direction."""
+    from speech_recognition_tpu_torch.models.layers import Conv
+
+    return sum(isinstance(m, Conv) and m.depthwise_1d()
+               for m in model.modules())
+
+
+def dwconv_shapes(model_name: str) -> list:
+    """(C, T, k, stride, padding) of each depthwise conv of
+    ``model_name`` that the kernels take, in the forward's order (one CPU
+    pass at batch 2 on its representation's input at the default
+    geometry; ``tests/test_torch_dwconv1d.py`` reads its shapes here
+    too)."""
+    from speech_recognition_tpu_torch.config import prepare_model_settings
+    from speech_recognition_tpu_torch.models.layers import Conv
+    from speech_recognition_tpu_torch.models.zoo import build_model
+    from speech_recognition_tpu_torch.ops.frontend import Frontend
+
+    s = prepare_model_settings(label_count=12)
+    model, spec = build_model(
+        model_name, num_classes=12, spectrogram_length=s.spectrogram_length,
+        num_log_mel_features=s.num_log_mel_features,
+        spectrogram_frequencies=s.spectrogram_frequencies,
+        window_size_samples=s.window_size_samples,
+        window_stride_samples=s.window_stride_samples)
+    shapes = []
+
+    def hook(conv, inputs, _):
+        if conv.depthwise_1d():
+            shapes.append((inputs[0].shape[1], inputs[0].shape[2],
+                           conv.kernel[0], conv.stride[0], conv.padding))
+
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.register_forward_hook(hook)
+    x = Frontend(s).features(torch.randn(2, T) * 0.1, spec.representation)
+    with torch.no_grad():
+        model.train()(x, torch.Generator())
+    return shapes
+
+
+def dwconv_phase(device, card: str, ptxas: list[str]) -> dict:
+    """The [dwconv] phase: the depthwise conv kernels (``ops/kernels/
+    dwconv1d.py``) at every depthwise conv of the benchmark's five
+    models, batch 384, bf16 x and dy over the float32 weight (the train
+    step's): the kernels against the float64 plain twin at each distinct
+    shape (``DWCONV_TOL``), then, for each model, the device ms of one
+    step's convs forward and backward (each conv once, the backward in
+    reverse order) through the kernels, through the plain twin, through
+    the layer before the kernels (``F.pad``, then ``F.conv1d(groups=C)``
+    with the bf16 weight autocast would make, and their autograd: all its
+    kernels, logged; ATen's depthwise kernels among them, the library's
+    call, ``library_ms``), beside the byte floor (x read and y written forward; x and dy read
+    and dx written backward, each once) over 3.35 TB/s. Launches are
+    counted where the train steps of [slice] and [zoo] run them
+    (``launch.runs``)."""
+    import torch.nn.functional as F
+
+    from speech_recognition_tpu_torch.ops.framing import same_pad_amount
+    from speech_recognition_tpu_torch.ops.kernels import dwconv1d as DW
+
+    for line in ptxas:
+        log(f"[dwconv] ptxas -v {line}")
+
+    def pads(t, k, s, padding):
+        return same_pad_amount(t, k, s) if padding == "same" else (0, 0)
+
+    models, inputs = {}, {}
+    for name in DWCONV_MODELS:
+        models[name] = dwconv_shapes(name)
+        for shape in models[name]:
+            if shape in inputs:
+                continue
+            c, t, k, s, padding = shape
+            left, right = pads(t, k, s, padding)
+            out = DW.outputs(t, k, s, left, right)
+            g = torch.Generator().manual_seed(len(inputs))
+            x = torch.randn((BATCH, c, t), generator=g).to(device,
+                                                          torch.bfloat16)
+            w = torch.randn((c, 1, k), generator=g).to(device)
+            dy = torch.randn((BATCH, c, out), generator=g).to(
+                device, torch.bfloat16)
+            inputs[shape] = (x, w, dy, s, left, right)
+            got = (DW.dwconv1d_forward(x, w, s, left, right),
+                   *DW.dwconv1d_backward(dy, x, w, s, left, right))
+            args = (x.double(), w.double(), dy.double())
+            want = (DW.dwconv1d_forward_plain(*args[:2], s, left, right),
+                    *DW.dwconv1d_backward_plain(args[2], *args[:2], s, left,
+                                                right))
+            mags = [a.abs() for a in args]
+            mag = (DW.dwconv1d_forward_plain(*mags[:2], s, left, right),
+                   *DW.dwconv1d_backward_plain(mags[2], *mags[:2], s, left,
+                                               right))
+            torch.cuda.synchronize()
+            info = torch.finfo(torch.bfloat16)
+            for (key, tol), a, b, m in zip(DWCONV_TOL.items(), got, want,
+                                           mag):
+                rounding = 0 if key == "dw" else info.eps / 2 * torch.clamp(
+                    b.abs(), min=info.smallest_normal)
+                if not ((a.double() - b).abs() <= rounding + tol * m).all():
+                    raise RuntimeError(f"[dwconv] {shape}: {key} against "
+                                       f"the plain twin out of tolerance")
+    log(f"[dwconv] kernels against the float64 plain twin at "
+        f"{len(inputs)} shapes, batch {BATCH}, bf16 x and dy, f32 w: y, dx "
+        f"and dw within {DWCONV_TOL} of their sums' absolute terms | {card}")
+
+    def step(shapes, forward, backward):
+        def run():
+            for shape in shapes:
+                x, w, _, s, left, right = inputs[shape]
+                forward(x, w, s, left, right)
+            for shape in shapes[::-1]:
+                x, w, dy, s, left, right = inputs[shape]
+                backward(dy, x, w, s, left, right)
+        return run
+
+    def aten(shapes):
+        def run():
+            ys = []
+            for shape in shapes:
+                x, w, _, s, left, right = inputs[shape]
+                x = x.detach().requires_grad_(True)
+                wb = w.bfloat16().detach().requires_grad_(True)
+                ys.append(F.conv1d(F.pad(x, (left, right)), wb, stride=s,
+                                   groups=x.shape[1]))
+            for shape, y in zip(shapes[::-1], ys[::-1]):
+                y.backward(inputs[shape][2])
+        return run
+
+    records = {}
+    for name, shapes in models.items():
+        xs = sum(BATCH * c * t for c, t, *_ in shapes)
+        ys = sum(BATCH * c * DW.outputs(t, k, s, *pads(t, k, s, p))
+                 for c, t, k, s, p in shapes)
+        k = device_ms_by_kernel(step(shapes, DW.dwconv1d_forward,
+                                     DW.dwconv1d_backward))
+        by_kernel = {n: sum(v for e, v in k.items() if n in e)
+                     for n in ("dwconv1d_fw", "dwconv1d_bw",
+                               "dwconv1d_merge")}
+        ms = sum(by_kernel.values())
+        plain_ms = sum(device_ms_by_kernel(step(
+            shapes, DW.dwconv1d_forward_plain,
+            DW.dwconv1d_backward_plain)).values())
+        before_k = device_ms_by_kernel(aten(shapes))
+        before_ms = sum(before_k.values())
+        aten_k = {e: v for e, v in before_k.items() if "depthwise" in e}
+        library_ms = sum(aten_k.values())
+        nbytes = 2 * (3 * xs + 2 * ys)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        records[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound}
+        log(f"[dwconv] {name}: {len(shapes)} convs, {xs:,} input and "
+            f"{ys:,} output elements a step; kernels {ms:.4f} ms ("
+            + ", ".join(f"{n} {v:.4f}" for n, v in by_kernel.items())
+            + f"); bound {bound:.4f} ms ({nbytes / 1e9:.4f} GB; "
+            f"{100 * bound / ms:.1f} %); plain twin {plain_ms:.4f} ms; "
+            f"ATen's depthwise kernels {library_ms:.4f} ms; the layer "
+            f"before the kernels (F.pad, F.conv1d, autograd) {before_ms:.4f}"
+            f" ms in {len(before_k)} kernel names; device ms a step, mean "
+            f"of {BN_ITERS} | {card}")
+    main = records[DWCONV_MODELS[0]]
+    return {
+        "name": "dwconv1d",
+        "route": "cuda",
+        "source": "speech_recognition_tpu_torch/csrc/dwconv1d.cu",
+        "replaces": None,
+        "launches": None,
+        "max_abs_err": None,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+    }
+
+
 def edge_case_draws(trainer, ds, starts=(0,)):
     """A training batch's draws with the kernel's edge cases written in
     from each row of ``starts``: zero and most-negative shifts, silence
@@ -2168,7 +2365,7 @@ def _to(x, device):
 
 
 def zoo_phase(device, card: str, ds,
-              settings) -> tuple[int, dict, dict, dict]:
+              settings) -> tuple[int, dict, dict, dict, dict]:
     """The [zoo] phase, on [slice]'s full-corpus bank ``ds``: for each of
     the 23 models of ``ZOO_PARAMS``, at its golden's geometry (98 frames;
     60 mel features, 40 for ``ZOO_MEL_40``; 257 bins), its parameter
@@ -2184,11 +2381,13 @@ def zoo_phase(device, card: str, ds,
     device's busy time over ``ZOO_TRACED`` more steps (``torch.profiler``)
     against the events' step. A model with BiGRUs runs each GRU kernel
     once a BiGRU and step, each BatchNorm kernel once a BatchNorm and
-    step, and each max-pool kernel once a pool along a last axis (as the
-    CPU forward meets them) and step, launched or replayed
-    (``launch.runs``). Returns the runs of decode+augment in the
-    trainers' steps, and those of the GRU, BatchNorm and max-pool
-    kernels by model (read before the comparison and the trace)."""
+    step, each max-pool kernel once a pool along a last axis (as the
+    CPU forward meets them) and step, and each depthwise kernel once a
+    depthwise conv the kernels take and step (13 of the models),
+    launched or replayed (``launch.runs``). Returns the runs of
+    decode+augment in the trainers' steps, and those of the GRU,
+    BatchNorm, max-pool and depthwise kernels by model (read before the
+    comparison and the trace)."""
     from speech_recognition_tpu_torch.config import AugmentConfig
     from speech_recognition_tpu_torch.export.benchmark import (
         benchmark_train, traced_train_device_time,
@@ -2206,7 +2405,8 @@ def zoo_phase(device, card: str, ds,
     if missing:
         raise RuntimeError(f"[zoo] not in the registry: {sorted(missing)}")
     clips = ds.decode(ds.partitions["validation"].file_ids[:4]).cpu()
-    total, gru_total, bn_total, maxpool_total = 0, {}, {}, {}
+    total, gru_total, bn_total, maxpool_total, dwconv_total = 0, {}, {}, \
+        {}, {}
     for name, golden in ZOO_PARAMS.items():
         t0 = time.perf_counter()
         s = dataclasses.replace(settings, num_log_mel_features=(
@@ -2285,6 +2485,14 @@ def zoo_phase(device, card: str, ds,
                                f"{len(pools)} last-axis pool(s)")
         if pools:
             maxpool_total[name] = sum(mp.values())
+        dws = depthwise_convs(state.model)
+        dw = {k: runs[k] for k in DWCONV_KERNELS}
+        if dw != dict.fromkeys(DWCONV_KERNELS, (ZOO_STEPS + ZOO_WARMUP) * dws):
+            raise RuntimeError(f"[zoo] {name}: depthwise kernel runs {dw} in "
+                               f"{ZOO_STEPS + ZOO_WARMUP} train steps of "
+                               f"{dws} depthwise conv(s)")
+        if dws:
+            dwconv_total[name] = sum(dw.values())
         if trainer.graph_error is not None:
             eager.append(name)
         if len(losses) != ZOO_STEPS + ZOO_WARMUP \
@@ -2305,7 +2513,8 @@ def zoo_phase(device, card: str, ds,
             f"{kernel_err:.3g}; GRU kernel runs {grus}; BatchNorm kernel "
             f"runs {bn[BN_KERNELS[0]]} each ({bns} BatchNorms a step); "
             f"max-pool kernel runs {mp[MAXPOOL_KERNELS[0]]} each "
-            f"({len(pools)} last-axis pools a step)")
+            f"({len(pools)} last-axis pools a step); depthwise kernel runs "
+            f"{dw[DWCONV_KERNELS[0]]} each ({dws} depthwise convs a step)")
         log(f"[zoo] {name} bf16 batch {BATCH}: "
             f"{result['ms_per_step']:.3f} ms/step, "
             f"{result['clips_per_sec']:.1f} clips/s (CUDA events over "
@@ -2324,10 +2533,15 @@ def zoo_phase(device, card: str, ds,
         torch.cuda.empty_cache()
     log(f"[zoo] phase {time.perf_counter() - phase_t0:.1f} s, "
         f"decode_augment runs {total}; GRU kernel runs {gru_total}; "
-        f"BatchNorm kernel runs {bn_total}; models "
+        f"BatchNorm kernel runs {bn_total}; depthwise kernel runs "
+        f"{dwconv_total} ({len(dwconv_total)} models); models "
         f"whose capture of the train step failed, their steps eager: "
         f"{eager or 'none'}")
-    return total, gru_total, bn_total, maxpool_total
+    if len(dwconv_total) != 12:
+        raise RuntimeError(f"[zoo] depthwise kernels ran in "
+                           f"{sorted(dwconv_total)}, not the 12 zoo models "
+                           f"beside the flagship that have such convs")
+    return total, gru_total, bn_total, maxpool_total, dwconv_total
 
 
 def hold_decode_augment(bank, bg_flat, d, label: str) -> float:
@@ -3572,6 +3786,8 @@ def main() -> int:
     separable_kernels.append(bn_kernel)
     maxpool_kernel = maxpool_phase(device, card, ptxas["maxpool"])
     separable_kernels.append(maxpool_kernel)
+    dwconv_kernel = dwconv_phase(device, card, ptxas["dwconv1d"])
+    separable_kernels.append(dwconv_kernel)
 
     # 5. the flagship on the card against the CPU, f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -3612,6 +3828,7 @@ def main() -> int:
     launches = runs["decode_augment"]
     bn_slice = {k: runs[k] for k in BN_KERNELS}
     maxpool_slice = {k: runs[k] for k in MAXPOOL_KERNELS}
+    dwconv_slice = {k: runs[k] for k in DWCONV_KERNELS}
     losses = result["losses"]
     if launches != STEPS + WARMUP:
         raise RuntimeError(f"{launches} kernel launches in "
@@ -3627,6 +3844,14 @@ def main() -> int:
         raise RuntimeError(f"max-pool kernel runs {maxpool_slice} in "
                            f"{STEPS + WARMUP} train steps of {pools} "
                            f"last-axis pools")
+    # the validation sweep's forwards run the forward kernel too
+    dws = depthwise_convs(state.model)
+    sweeps = NUM_VAL // BATCH
+    if dwconv_slice != {"dwconv1d_fw": (STEPS + WARMUP + sweeps) * dws,
+                        "dwconv1d_bw": (STEPS + WARMUP) * dws} or dws != 11:
+        raise RuntimeError(f"depthwise kernel runs {dwconv_slice} in "
+                           f"{STEPS + WARMUP} train steps and {sweeps} "
+                           f"validation batches of {dws} depthwise convs")
     if len(losses) != STEPS + WARMUP or not np.isfinite(losses).all():
         raise RuntimeError(f"losses: {losses}")
     expected = (NUM_VAL // BATCH) * BATCH
@@ -3644,14 +3869,15 @@ def main() -> int:
         f"kernel launches in the main path: {launches}; BatchNorm kernel "
         f"runs {bn_slice} ({bns} BatchNorms a step, launched or replayed); "
         f"max-pool kernel runs {maxpool_slice} ({pools} last-axis pools a "
-        f"step)")
+        f"step); depthwise kernel runs {dwconv_slice} ({dws} depthwise "
+        f"convs a step, and forward in {sweeps} validation batches)")
 
     # 7. the other 23 zoo models on the same bank, each with the counts
     # set to 0 just before its steps
     del trainer, state
     torch.cuda.empty_cache()
-    zoo_launches, gru_zoo, bn_zoo, maxpool_zoo = zoo_phase(device, card, ds,
-                                                          settings)
+    zoo_launches, gru_zoo, bn_zoo, maxpool_zoo, dwconv_zoo = zoo_phase(
+        device, card, ds, settings)
     gru_kernel["launches_by_path"] = {"zoo": sum(gru_zoo.values())}
     gru_kernel["launches"] = sum(gru_zoo.values())
     bn_kernel["launches_by_path"] = {"slice": sum(bn_slice.values()),
@@ -3662,6 +3888,11 @@ def main() -> int:
         "zoo": sum(maxpool_zoo.values())}
     maxpool_kernel["launches"] = sum(
         maxpool_kernel["launches_by_path"].values())
+    dwconv_kernel["launches_by_path"] = {
+        "slice": sum(dwconv_slice.values()),
+        "zoo": sum(dwconv_zoo.values())}
+    dwconv_kernel["launches"] = sum(
+        dwconv_kernel["launches_by_path"].values())
 
     # 8. data-parallel training, in processes of their own
     del ds, d, bg, args

@@ -30,6 +30,10 @@ from speech_recognition_tpu_torch.ops.framing import same_pad_amount
 from speech_recognition_tpu_torch.ops.kernels.batchnorm import (
     KERNEL_DTYPES as BN_KERNEL_DTYPES, batch_norm_train,
 )
+from speech_recognition_tpu_torch.ops.kernels.dwconv1d import (
+    KERNEL_DTYPES as DW_KERNEL_DTYPES, MAX_TAPS as DW_MAX_TAPS,
+    depthwise_conv1d,
+)
 from speech_recognition_tpu_torch.ops.kernels.gru import gru_recurrence
 from speech_recognition_tpu_torch.ops.kernels.launch import aligned
 from speech_recognition_tpu_torch.ops.kernels.maxpool import (
@@ -89,6 +93,14 @@ class Conv(nn.Module):
     ``padding='same'`` pads each axis asymmetrically (TF SAME, left =
     total // 2) over its dilated span ``(k - 1) * dilation + 1``, which
     torch's own ``padding='same'`` cannot do at stride > 1.
+
+    On a card, a 1-D depthwise conv (``groups`` = in = out channels, a
+    [C, 1, k] float32 weight, no bias, dilation 1, k <= ``DW_MAX_TAPS``)
+    whose input is, or is cast by autocast to, float32, bfloat16 or
+    float16 goes through the depthwise kernels
+    (``ops/kernels/dwconv1d.py``), which apply the pad themselves and read
+    the float32 weight as it is; every other conv, and the CPU, take
+    ``F.pad`` and ``F.conv1d`` / ``F.conv2d``.
     """
 
     KERNELS = ("weight",)      # the tensors flax names ``kernel``
@@ -118,7 +130,36 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def _conv_dtype(self, x: torch.Tensor) -> torch.dtype:
+        """The dtype ``F.conv1d`` would compute x in: autocast's for a
+        tensor it casts, else x's own."""
+        if (x.dtype != torch.float64
+                and torch.is_autocast_enabled(x.device.type)):
+            return torch.get_autocast_dtype(x.device.type)
+        return x.dtype
+
+    def depthwise_1d(self) -> bool:
+        """Whether the depthwise kernels take this conv's geometry: 1-D,
+        ``groups`` = in = out channels, no bias, dilation 1, at most
+        ``DW_MAX_TAPS`` taps."""
+        return (len(self.kernel) == 1 and self.bias is None
+                and self.groups == self.weight.shape[0]
+                and self.weight.shape[1] == 1 and self.dilation == (1,)
+                and self.kernel[0] <= DW_MAX_TAPS)
+
+    def _takes_dwconv(self, x: torch.Tensor) -> bool:
+        return (x.is_cuda and self.depthwise_1d()
+                and self.weight.dtype == torch.float32
+                and self._conv_dtype(x) in DW_KERNEL_DTYPES)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._takes_dwconv(x):
+            left = right = 0
+            if self.padding == "same":
+                left, right = same_pad_amount(x.shape[2], self.kernel[0],
+                                              self.stride[0])
+            return depthwise_conv1d(x.to(self._conv_dtype(x)), self.weight,
+                                    self.stride[0], left, right)
         if self.padding == "same":
             pads = []               # F.pad takes the last axis first
             for axis in reversed(range(len(self.kernel))):

@@ -310,10 +310,11 @@ def test_the_kernels_take_every_layout(cuda, shape, dtype):
 def test_a_replayed_step_runs_each_kernel_once_a_layer(cuda):
     """The flagship's forward and backward under bf16 autocast, captured
     (``launch.capture``) and replayed: the capture runs nothing, a
-    replay counts one run of each kernel for each of its 12 BatchNorms
-    and gives the eager step's gradients from the same generator state
-    (to 1e-3 of the largest: cuDNN's weight gradients may sum in
-    another order from run to run)."""
+    replay counts one run of each kernel for each of its 12 BatchNorms,
+    one of each depthwise kernel for each of its 11 depthwise convs and
+    no other run, and gives the eager step's gradients from the same
+    generator state (to 1e-3 of the largest: cuDNN's weight gradients
+    may sum in another order from run to run)."""
     from speech_recognition_tpu_torch.models.zoo import build_model
 
     model, _ = build_model("conv_1d_time_sliced_with_attention", 12)
@@ -346,10 +347,14 @@ def test_a_replayed_step_runs_each_kernel_once_a_layer(cuda):
     gen.manual_seed(11)
     launch.replay(graph)
     torch.cuda.synchronize()
-    assert layers == 12
+    dws = sum(isinstance(m, L.Conv) and m.depthwise_1d()
+              for m in model.modules())
+    assert layers == 12 and dws == 11
     assert {k: v for k, v in (eager - before).items()
             if k in KERNELS} == dict.fromkeys(KERNELS, layers)
-    assert launch.runs() - eager == dict.fromkeys(KERNELS, layers)
+    assert launch.runs() - eager == {
+        **dict.fromkeys(KERNELS, layers),
+        **dict.fromkeys(("dwconv1d_fw", "dwconv1d_bw"), dws)}
     for a, c in zip(out, want):
         assert (a - c).abs().max() <= 1e-3 * c.abs().max()
 

@@ -123,14 +123,18 @@ def test_train_steps_launch_the_kernel(cuda):
     state = trainer.init_state()
     before = launch.runs()
     metrics = trainer.train_many(state, 3)
-    # one run a step, and one of each BatchNorm kernel a BatchNorm and
-    # step: the first launched, the others replays of its graph, which
-    # holds those launches
-    from speech_recognition_tpu_torch.models.layers import BatchNorm
+    # one run a step, one of each BatchNorm kernel a BatchNorm and step,
+    # and one of each depthwise kernel a depthwise conv and step: the
+    # first launched, the others replays of its graph, which holds those
+    # launches
+    from speech_recognition_tpu_torch.models.layers import BatchNorm, Conv
     bns = sum(isinstance(m, BatchNorm) for m in state.model.modules())
     bn = dict.fromkeys(("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce",
                         "bn_bw_dx"), bns)
-    assert bns == 12
+    dws = sum(isinstance(m, Conv) and m.depthwise_1d()
+              for m in state.model.modules())
+    bn.update(dict.fromkeys(("dwconv1d_fw", "dwconv1d_bw"), dws))
+    assert bns == 12 and dws == 11
     assert launch.runs() - before == {"decode_augment": 3,
                                       **{k: 3 * v for k, v in bn.items()}}
     assert launch._GRAPHS[trainer._graph.graph] == {"decode_augment": 1,

@@ -26,7 +26,7 @@ from speech_recognition_tpu_torch.config import (
 from speech_recognition_tpu_torch.data.device_bank import (
     synthetic_device_dataset,
 )
-from speech_recognition_tpu_torch.models.layers import BatchNorm
+from speech_recognition_tpu_torch.models.layers import BatchNorm, Conv
 from speech_recognition_tpu_torch.ops.kernels import launch
 from speech_recognition_tpu_torch.train import loop as L
 from speech_recognition_tpu_torch.train.optim import set_learning_rate
@@ -109,7 +109,9 @@ def _run(device, name, graph, schedule=((STEPS, None),)):
         graph_error=tr.graph_error,
         held=(dict(launch._GRAPHS[tr._graph.graph]) if graph
               and tr._graph is not None else None),
-        batch_norms=sum(isinstance(m, BatchNorm) for m in model.modules()))
+        batch_norms=sum(isinstance(m, BatchNorm) for m in model.modules()),
+        depthwise=sum(isinstance(m, Conv) and m.depthwise_1d()
+                      for m in model.modules()))
     torch.cuda.synchronize()
     return out
 
@@ -145,12 +147,15 @@ def test_replays_redo_the_eager_steps(cuda, name):
     graph = _run(cuda, name, True)
     assert graph["graph_error"] is None
     assert (graph["captures"], graph["replays"]) == (1, STEPS - 1)
-    # one decode+augment a step, and each BatchNorm kernel once a
-    # BatchNorm: the eager first step launches them, the capture holds
-    # them (runs nothing) and each replay runs them once
+    # one decode+augment a step, each BatchNorm kernel once a BatchNorm
+    # and each depthwise kernel once a depthwise conv: the eager first
+    # step launches them, the capture holds them (runs nothing) and each
+    # replay runs them once
     bn = dict.fromkeys(("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce",
                         "bn_bw_dx"), graph["batch_norms"])
-    assert graph["batch_norms"] > 0
+    bn.update(dict.fromkeys(("dwconv1d_fw", "dwconv1d_bw"),
+                            graph["depthwise"]))
+    assert graph["batch_norms"] > 0 and graph["depthwise"] > 0
     assert graph["held"] == {"decode_augment": 1, **bn}
     assert launch.runs() == {"decode_augment": STEPS,
                              **{k: STEPS * v for k, v in bn.items()}}
